@@ -52,8 +52,7 @@ def worker(args):
 
     rows, cols, vals = _problem()
     p, n, k = 163_000, 59_000, 128
-    X = build_tiled(rows, cols, vals, (p, n), dense_tile_nnz=192,
-                    coo_tail_nnz=3)
+    X = build_tiled(rows, cols, vals, (p, n))
     rng = np.random.default_rng(1)
     W = jnp.asarray(rng.random((p, k), dtype=np.float32))
     H = jnp.asarray(rng.random((k, n), dtype=np.float32))
@@ -90,7 +89,7 @@ def main():
             )
         except subprocess.TimeoutExpired:
             print(json.dumps({
-                "error": "timeout (wedged tunnel?)",
+                "error": "timeout",
                 "shrink": int(shrink), "min": int(floor),
             }), flush=True)
             continue

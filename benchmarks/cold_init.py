@@ -1,8 +1,9 @@
 """Cold-start cost of the default init (nndsvdar -> rsvd -> CholeskyQR3).
 
-VERDICT r2 weak #2: the nndsvdar cold path costs ~21 s of XLA compilation on
-v5e (the QR/SVD pipeline).  Fix: the persistent compilation cache
-(``nmf_tpu.config.enable_compilation_cache``) makes that a once-per-machine
+The nndsvdar cold path spends most of its first call compiling the QR/SVD
+pipeline.  The persistent compilation cache
+(``nmf_tpu.config.enable_compilation_cache``: ``JAX_COMPILATION_CACHE_DIR``
+if set, else ``.jax_cache`` in the checkout) makes that a once-per-machine
 cost.  This probe measures it:
 
     python benchmarks/cold_init.py          # first run: populates the cache
@@ -29,7 +30,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-cache", action="store_true")
-    ap.add_argument("--cache-dir", default="/tmp/nmf_tpu_xla_cache")
     ap.add_argument("--p", type=int, default=2000)
     ap.add_argument("--n", type=int, default=1000)
     ap.add_argument("--k", type=int, default=32)
@@ -40,7 +40,7 @@ def main():
     from nmf_tpu import config as _config
 
     if not args.no_cache:
-        _config.enable_compilation_cache(args.cache_dir)
+        _config.enable_compilation_cache()
 
     import jax.numpy as jnp
 

@@ -43,7 +43,7 @@ def main():
     rng = np.random.default_rng(0)
     p, n, k = 163_000, 59_000, args.k
     rows, cols, vals = _movielens_like(rng)
-    X = build_tiled(rows, cols, vals, (p, n), dense_tile_nnz=192)
+    X = build_tiled(rows, cols, vals, (p, n))
     W = jnp.asarray(rng.random((p, k), dtype=np.float32))
     H = jnp.asarray(rng.random((k, n), dtype=np.float32))
 

@@ -56,7 +56,7 @@ def main():
     # ShardedTiled (device (i,j) owns its row/col block's nonzeros)
     dense = np.asarray(X) * (rng.random((p, n)) < 0.05)
     r, c = np.nonzero(dense)
-    Xt = sparse_format.build_tiled(r, c, dense[r, c], (p, n), stripe_tiles=1)
+    Xt = sparse_format.build_tiled(r, c, dense[r, c], (p, n))
     ret2 = nmf_tpu.nnmf(Xt, k, alg="multdiv", init="random", maxiter=25, mesh=mesh)
     print(f"sparse  multdiv: niters={ret2.niters} objv={ret2.objvalue:.5e}")
 

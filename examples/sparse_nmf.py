@@ -1,7 +1,7 @@
 """Sparse NMF demo: factorize a sparse user-item matrix.
 
-Shows both sparse backends: jax BCOO (portable) and the TiledCSR format that
-feeds the Pallas gather-matmul kernel (TPU fast path; interpreted on CPU).
+Shows both sparse backends: jax BCOO (portable) and the TiledCSR store,
+whose products run a sorted segment-sum and, on a GPU, a Triton SDDMM.
 """
 
 import sys
@@ -31,7 +31,7 @@ def main():
     ret = nmf_tpu.nnmf(X, k, alg="cd", init="random", maxiter=50)
     print(f"BCOO     cd: niters={ret.niters} objv={ret.objvalue:.5e}")
 
-    # TiledCSR path (Pallas kernel)
+    # TiledCSR path
     Xt = sparse_format.build_tiled(r, c, dense[r, c], (p, n))
     ret2 = nmf_tpu.nnmf(Xt, k, alg="cd", init="random", maxiter=50)
     print(f"TiledCSR cd: niters={ret2.niters} objv={ret2.objvalue:.5e}")

@@ -1,16 +1,17 @@
 // nmf_host — native host-side runtime for nmf_tpu.
 //
 // The reference's "native layer" is CPU BLAS/LAPACK reached through Julia
-// (SURVEY.md §2B); the TPU build's compute-native layer is XLA/Pallas.  What
-// remains host-side — and what this library owns — is the data path that
-// feeds the chips: parsing multi-gigabyte sparse matrices (MatrixMarket /
-// raw COO), deduplicating and converting to CSR, and binning nonzeros into
-// (row_block, col_block) tiles padded for the TPU sparse kernels.  All of it
+// (SURVEY.md §2B); this build's compute-native layer is XLA.  What remains
+// host-side — and what this library owns — is the data path that feeds the
+// devices: parsing multi-gigabyte sparse matrices (MatrixMarket / raw COO),
+// deduplicating and converting to CSR, and sorting the nonzeros into the
+// sparse store's CSR order.  All of it
 // is multithreaded C++ exposed through a plain C ABI consumed via ctypes
 // (no pybind11 dependency).
 //
-// Build: `make -C native` -> libnmf_host.so; nmf_tpu.io falls back to pure
-// numpy when the library is absent.
+// Build: nmf_tpu.io builds native/build/libnmf_host.so at first use (or
+// `make -C native`); it falls back to numpy, with a warning, when the build
+// fails.
 
 #include <algorithm>
 #include <atomic>
@@ -264,32 +265,10 @@ int64_t nmf_coo_to_csr(int64_t rows, int64_t nnz, const int32_t* row_idx,
 }
 
 // ---------------------------------------------------------------------------
-// Tile binning for the TPU sparse kernel: bucket nonzeros into
-// (row_block, col_block) tiles, pad each tile's entry list to `pad` and
-// emit flat arrays ordered tile-major.  Returns number of tiles.
-
-int64_t nmf_tile_bin_count(int64_t nnz, const int32_t* row_idx,
-                           const int32_t* col_idx, int64_t rows, int64_t cols,
-                           int64_t bm, int64_t bn) {
-  int64_t tr = (rows + bm - 1) / bm, tc = (cols + bn - 1) / bn;
-  std::vector<uint8_t> used(tr * tc, 0);
-  for (int64_t i = 0; i < nnz; ++i) {
-    used[(row_idx[i] / bm) * tc + (col_idx[i] / bn)] = 1;
-  }
-  int64_t n = 0;
-  for (auto u : used) n += u;
-  return n;
-}
-
-// ---------------------------------------------------------------------------
-// Compact-binner accelerators (nmf_tpu.ops.sparse_format._build_side_compact)
-//
-// The binning pipeline's hot numpy statements, measured at the 17.6M-nnz
-// config4 build: the stable tile-key argsort (~2.7 s), applying the order to
-// three arrays (~1.8 s), and the dense-tile element scatter (~5.8 s) — per
-// orientation.  The binning LOGIC stays in Python (single source of truth);
-// these functions replace only the mechanical loops, each parallel and
-// bounded by memory bandwidth.
+// Store-build accelerators (nmf_tpu.ops.sparse_format.build_tiled): the
+// stable argsort of the (row, col) keys and applying the order to the three
+// entry arrays.  The build logic stays in Python; these functions replace
+// only the mechanical loops, each parallel and bounded by memory bandwidth.
 
 // Stable LSD radix argsort of non-negative int64 keys (8-bit digits, passes
 // skipped when a digit column is constant).  Parallel histogram + stable
@@ -357,7 +336,7 @@ int64_t nmf_argsort64(int64_t n, const int64_t* keys, int64_t* order) {
   return 0;
 }
 
-// out[i] = src[order[i]] for the three binning arrays in one parallel pass.
+// out[i] = src[order[i]] for the three entry arrays in one parallel pass.
 void nmf_gather3(int64_t n, const int64_t* order, const int32_t* r,
                  const int32_t* c, const float* v, int32_t* ro, int32_t* co,
                  float* vo) {
@@ -367,107 +346,6 @@ void nmf_gather3(int64_t n, const int64_t* order, const int32_t* r,
       ro[i] = r[o];
       co[i] = c[o];
       vo[i] = v[o];
-    }
-  });
-}
-
-// Fused tile-key build: key = ((r/128)/st * ncp + c/128) * st + (r/128)%st
-// — replaces five full-array numpy passes (div, div, mod, two fused
-// multiply-adds) with one.
-void nmf_tile_key(int64_t n, const int32_t* rows, const int32_t* cols,
-                  int64_t n_colpanels, int64_t stripe_tiles, int64_t* key) {
-  parallel_for(n, [&](int64_t lo, int64_t hi) {
-    for (int64_t i = lo; i < hi; ++i) {
-      int64_t rp = rows[i] >> 7;
-      key[i] = ((rp / stripe_tiles) * n_colpanels + (cols[i] >> 7)) *
-                   stripe_tiles +
-               rp % stripe_tiles;
-    }
-  });
-}
-
-// gather3 plus the key array in the same pass (the separate numpy
-// key[order] gather measured ~5 s at the 84.6M-nnz config6 side).
-void nmf_gather3k(int64_t n, const int64_t* order, const int32_t* r,
-                  const int32_t* c, const float* v, const int64_t* k,
-                  int32_t* ro, int32_t* co, float* vo, int64_t* ko) {
-  parallel_for(n, [&](int64_t lo, int64_t hi) {
-    for (int64_t i = lo; i < hi; ++i) {
-      int64_t o = order[i];
-      ro[i] = r[o];
-      co[i] = c[o];
-      vo[i] = v[o];
-      ko[i] = k[o];
-    }
-  });
-}
-
-// Chunk-store fill: one pass over the tile-sorted residual assigns every
-// nonzero its chunk slot and writes coords/vals/slot ids directly.
-// Replaces the numpy pos_in_tile / searchsorted / chunk-index arithmetic
-// and the two fancy-index scatters (measured ~18 s combined at the config6
-// side).  Parallel over tiles; a tile's slots are written by one thread.
-//   t_first[t], counts[t]: the tile's range in the sorted residual arrays
-//   base[t]: the tile's first chunk index (group-padded layout)
-//   slot_out[i]: flat chunk-store slot of residual nonzero i
-void nmf_chunk_fill(int64_t ntiles, const int64_t* t_first,
-                    const int64_t* counts, const int64_t* base,
-                    const int32_t* s_rows, const int32_t* s_cols,
-                    const float* s_vals, int64_t cwidth, int32_t* coords,
-                    float* vals, int64_t* slot_out) {
-  parallel_for(ntiles, [&](int64_t lo, int64_t hi) {
-    for (int64_t t = lo; t < hi; ++t) {
-      int64_t first = t_first[t];
-      int64_t cnt = counts[t];
-      int64_t b = base[t];
-      for (int64_t p = 0; p < cnt; ++p) {
-        int64_t i = first + p;
-        int64_t gslot = (b + (p >> 7)) * 128 + (p & 127);
-        coords[gslot] =
-            (int32_t)(((s_cols[i] % cwidth) << 7) | (s_rows[i] & 127));
-        vals[gslot] = s_vals[i];
-        slot_out[i] = gslot;
-      }
-    }
-  });
-}
-
-// Class-partition extraction: tiles are contiguous runs of the sorted
-// arrays; each tile's run is copied to its class's contiguous output
-// region (per-tile destination offsets are class-major prefix sums the
-// caller computes over the small per-tile arrays).  One pass replaces the
-// numpy repeat/gather/boolean-compress cascade that classified and
-// extracted each class (~15 s at the config6 side).  ``order`` is gathered
-// through the same walk so refresh maps get their CSR ids for free.
-void nmf_class_extract(int64_t ntiles, const int64_t* t_first,
-                       const int64_t* counts, const int64_t* dst,
-                       const int32_t* a_rows, const int32_t* a_cols,
-                       const float* a_vals, const int64_t* order,
-                       int32_t* ro, int32_t* co, float* vo, int64_t* oo) {
-  // plain element loops: most tiles hold a handful of nonzeros (config6:
-  // 3.3M tiles averaging ~25), where per-call memcpy overhead dominates
-  parallel_for(ntiles, [&](int64_t lo, int64_t hi) {
-    for (int64_t t = lo; t < hi; ++t) {
-      int64_t src = t_first[t];
-      int64_t d = dst[t];
-      int64_t cnt = counts[t];
-      for (int64_t i = 0; i < cnt; ++i) {
-        ro[d + i] = a_rows[src + i];
-        co[d + i] = a_cols[src + i];
-        vo[d + i] = a_vals[src + i];
-        oo[d + i] = order[src + i];
-      }
-    }
-  });
-}
-
-// dvals[blk[i]*128*128 + lcol[i]*128 + lrow[i]] = v[i].  Positions are
-// unique (deduped COO), so parallel writes cannot race.
-void nmf_dense_scatter(int64_t n, const int64_t* blk, const int32_t* lcol,
-                       const int32_t* lrow, const float* v, float* dvals) {
-  parallel_for(n, [&](int64_t lo, int64_t hi) {
-    for (int64_t i = lo; i < hi; ++i) {
-      dvals[blk[i] * (128 * 128) + (int64_t)lcol[i] * 128 + lrow[i]] = v[i];
     }
   });
 }

@@ -1,11 +1,11 @@
-"""nmf_tpu — a TPU-native non-negative matrix factorization framework.
+"""nmf_tpu — a non-negative matrix factorization framework for GPUs.
 
-A from-scratch JAX/XLA/Pallas implementation of the full capability surface
+A from-scratch JAX/XLA implementation of the full capability surface
 of JuliaStats/NMF.jl (reference mounted at /root/reference): six solvers
 (multiplicative updates for MSE and KL, projected ALS, ALS projected
 gradient, Fast-HALS coordinate descent, greedy CD, SPA), the
 NNDSVD/NNDSVDa/NNDSVDar/random/SPA/custom initializer family backed by a
-TPU randomized SVD, multi-start replicates, per-factor solving and L1/L2
+randomized SVD, multi-start replicates, per-factor solving and L1/L2
 regularization — all exposed through the ``nnmf`` front door returning a
 ``Result(W, H, niters, converged, objvalue)``.
 

@@ -3,11 +3,11 @@
 Behavioral reference: /root/reference/src/initialization.jl — ``randinit``
 (:4-17) and the Boutsidis-Gallopoulos NNDSVD family (:19-137).
 
-TPU-first notes: the reference's NNDSVD loops over components, splitting each
+Design notes: the reference's NNDSVD loops over components, splitting each
 singular-vector pair into +/- parts with scalar kernels (:26-72,103-137).
 All k components are independent, so here the entire construction is one
 vectorized elementwise program over the (p x k) / (n x k) singular-vector
-blocks — a handful of fused VPU passes, no loops.
+blocks — a handful of fused elementwise passes, no loops.
 """
 
 from __future__ import annotations

@@ -1,23 +1,26 @@
 """Sparse-matrix ingest: MatrixMarket loading and COO->CSR conversion.
 
-The hot path is the native C++ library ``native/libnmf_host.so``
+The hot path is the native C++ library built from ``native/nmf_host.cpp``
 (multithreaded mmap-free parser + counting-sort CSR build), reached through
-ctypes; a pure-numpy fallback keeps everything working when the library has
-not been built (``make -C native``).
+ctypes.  It is compiled into ``native/build/`` at first use (or ahead of
+time with ``make -C native``), with portable flags, since the machine that
+runs the program may not be the one that built it.  A pure-numpy fallback,
+announced by a warning, keeps everything working when the build fails.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
+import warnings
 from typing import NamedTuple
 
 import numpy as np
 
 __all__ = [
     "load_mtx", "coo_to_csr", "native_available", "to_bcoo",
-    "stable_argsort", "gather3", "gather3k", "dense_scatter",
-    "tile_key", "chunk_fill", "class_extract",
+    "stable_argsort", "gather3",
 ]
 
 _LIB = None
@@ -36,18 +39,52 @@ class _MtxResult(ctypes.Structure):
     ]
 
 
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+_NATIVE_SRC = os.path.join(_NATIVE_DIR, "nmf_host.cpp")
+LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libnmf_host.so")
+# keep in step with native/Makefile
+_CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
+
+
+def _build_lib() -> None:
+    """Compile the library into ``LIB_PATH`` when it is missing or older
+    than its source.  Concurrent builders (test workers) each write their
+    own file and rename it into place, so a reader never sees half a
+    library."""
+    if (os.path.exists(LIB_PATH)
+            and os.path.getmtime(LIB_PATH) >= os.path.getmtime(_NATIVE_SRC)):
+        return
+    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [os.environ.get("CXX", "c++"), *_CXXFLAGS, "-o", tmp, _NATIVE_SRC]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=600)
+        os.replace(tmp, LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _load_lib():
     global _LIB, _LIB_TRIED
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "native",
-        "libnmf_host.so",
-    )
-    if not os.path.exists(path):
+    try:
+        _build_lib()
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        warnings.warn(
+            f"building {LIB_PATH} failed ({e}); host ingest falls back to "
+            f"numpy. {detail.decode(errors='replace')[-2000:]}",
+            RuntimeWarning,
+            stacklevel=2,
+        )
         return None
+    path = LIB_PATH
     try:
         lib = ctypes.CDLL(path)
         lib.nmf_load_mtx.argtypes = [ctypes.c_char_p, ctypes.POINTER(_MtxResult)]
@@ -81,71 +118,14 @@ def _load_lib():
             np.ctypeslib.ndpointer(np.float32),
         ]
         lib.nmf_gather3.restype = None
-        lib.nmf_dense_scatter.argtypes = [
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.float32),
-            np.ctypeslib.ndpointer(np.float32),
-        ]
-        lib.nmf_dense_scatter.restype = None
-        lib.nmf_tile_key.argtypes = [
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.int32),
-            ctypes.c_int64,
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int64),
-        ]
-        lib.nmf_tile_key.restype = None
-        lib.nmf_gather3k.argtypes = [
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.float32),
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.float32),
-            np.ctypeslib.ndpointer(np.int64),
-        ]
-        lib.nmf_gather3k.restype = None
-        lib.nmf_chunk_fill.argtypes = [
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.float32),
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.float32),
-            np.ctypeslib.ndpointer(np.int64),
-        ]
-        lib.nmf_chunk_fill.restype = None
-        lib.nmf_class_extract.argtypes = [
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.float32),
-            np.ctypeslib.ndpointer(np.int64),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.int32),
-            np.ctypeslib.ndpointer(np.float32),
-            np.ctypeslib.ndpointer(np.int64),
-        ]
-        lib.nmf_class_extract.restype = None
         _LIB = lib
-    except (OSError, AttributeError):
-        # AttributeError: a stale libnmf_host.so built before a symbol was
-        # added — fall back to numpy rather than crash (rebuild with
-        # `make -C native` to re-enable the native path)
+    except (OSError, AttributeError) as e:
+        # AttributeError: a library missing a symbol the bindings declare
+        warnings.warn(
+            f"loading {path} failed ({e}); host ingest falls back to numpy",
+            RuntimeWarning,
+            stacklevel=2,
+        )
         _LIB = None
     return _LIB
 
@@ -240,14 +220,13 @@ def coo_to_csr(coo: COO) -> CSR:
 
 def stable_argsort(keys: np.ndarray) -> np.ndarray:
     """Stable argsort of a non-negative int64 key array — the native
-    parallel radix sort when available (measured ~4x numpy's stable sort on
-    the 17.6M-key config4 tile keys), numpy otherwise."""
+    parallel radix sort when available, numpy otherwise."""
     lib = _load_lib()
     keys = np.ascontiguousarray(keys, np.int64)
     # The radix path orders two's-complement digits, which puts negative
     # keys AFTER positives — guard with one cheap O(n) min scan (all current
-    # call sites build non-negative fused tile keys, but a silent
-    # size-and-build-dependent ordering would be a brutal debug).
+    # call sites build non-negative keys, but a silent size-and-build-
+    # dependent ordering would be a brutal debug).
     if (
         lib is not None
         and (1 << 16) <= len(keys) < (1 << 31)
@@ -275,121 +254,6 @@ def gather3(order, r, c, v):
         np.ascontiguousarray(v, np.float32), ro, co, vo,
     )
     return ro, co, vo
-
-
-def dense_scatter(dvals: np.ndarray, blk, lcol, lrow, v):
-    """dvals[blk, lcol, lrow] = v (unique positions), parallel native."""
-    lib = _load_lib()
-    if (lib is None or len(blk) < (1 << 16)
-            or not dvals.flags.c_contiguous):
-        # non-contiguous dvals: reshape(-1) would copy and the native
-        # writes would land in the temporary — use the numpy path
-        dvals[blk, lcol, lrow] = v
-        return
-    lib.nmf_dense_scatter(
-        len(blk), np.ascontiguousarray(blk, np.int64),
-        np.ascontiguousarray(lcol, np.int32),
-        np.ascontiguousarray(lrow, np.int32),
-        np.ascontiguousarray(v, np.float32),
-        dvals.reshape(-1),
-    )
-
-
-def tile_key(rows, cols, n_colpanels: int, stripe_tiles: int):
-    """Fused tile key ((r//128)//st * ncp + c//128)*st + (r//128)%st in one
-    native pass (five numpy passes otherwise)."""
-    lib = _load_lib()
-    if lib is None or len(rows) < (1 << 16):
-        rp = rows // 128
-        return (
-            (rp // stripe_tiles).astype(np.int64) * n_colpanels + cols // 128
-        ) * stripe_tiles + rp % stripe_tiles
-    out = np.empty(len(rows), np.int64)
-    lib.nmf_tile_key(
-        len(rows), np.ascontiguousarray(rows, np.int32),
-        np.ascontiguousarray(cols, np.int32), n_colpanels, stripe_tiles, out,
-    )
-    return out
-
-
-def gather3k(order, r, c, v, k):
-    """(r[order], c[order], v[order], k[order]) in one parallel pass."""
-    lib = _load_lib()
-    if lib is None or len(order) < (1 << 16):
-        return r[order], c[order], v[order], k[order]
-    n = len(order)
-    ro = np.empty(n, np.int32)
-    co = np.empty(n, np.int32)
-    vo = np.empty(n, np.float32)
-    ko = np.empty(n, np.int64)
-    lib.nmf_gather3k(
-        n, np.ascontiguousarray(order, np.int64),
-        np.ascontiguousarray(r, np.int32),
-        np.ascontiguousarray(c, np.int32),
-        np.ascontiguousarray(v, np.float32),
-        np.ascontiguousarray(k, np.int64), ro, co, vo, ko,
-    )
-    return ro, co, vo, ko
-
-
-def chunk_fill(t_first, counts, base, s_rows, s_cols, s_vals, cwidth,
-               coords, vals):
-    """Per-tile chunk-slot assignment + coords/vals fill in one native pass
-    over the tile-sorted residual; returns the flat slot id per nonzero.
-    ``coords``/``vals`` are the flat (nchunks*128,) chunk-store arrays
-    (modified in place); the numpy fallback reproduces the original
-    pos_in_tile / chunk-index arithmetic exactly."""
-    lib = _load_lib()
-    nnz = len(s_rows)
-    if lib is not None and nnz >= (1 << 16) and coords.flags.c_contiguous             and vals.flags.c_contiguous:
-        slot = np.empty(nnz, np.int64)
-        lib.nmf_chunk_fill(
-            len(t_first), np.ascontiguousarray(t_first, np.int64),
-            np.ascontiguousarray(counts, np.int64),
-            np.ascontiguousarray(base, np.int64),
-            np.ascontiguousarray(s_rows, np.int32),
-            np.ascontiguousarray(s_cols, np.int32),
-            np.ascontiguousarray(s_vals, np.float32),
-            cwidth, coords, vals, slot,
-        )
-        return slot
-    pos = np.arange(nnz, dtype=np.int64) - np.repeat(t_first, counts)
-    slot = (np.repeat(base, counts) + pos // 128) * 128 + pos % 128
-    coords[slot] = ((s_cols % cwidth) << 7 | (s_rows % 128)).astype(np.int32)
-    vals[slot] = s_vals
-    return slot
-
-
-def class_extract(t_first, counts, dst, a_rows, a_cols, a_vals, order):
-    """Copy each tile's contiguous run of the sorted arrays to its class's
-    region (dst[t] = destination offset of tile t), gathering the CSR ids
-    (``order``) along — one native pass; the numpy fallback scatters via a
-    per-entry destination index."""
-    n = len(a_rows)
-    ro = np.empty(n, np.int32)
-    co = np.empty(n, np.int32)
-    vo = np.empty(n, np.float32)
-    oo = np.empty(n, np.int64)
-    lib = _load_lib()
-    if lib is not None and n >= (1 << 16):
-        lib.nmf_class_extract(
-            len(t_first), np.ascontiguousarray(t_first, np.int64),
-            np.ascontiguousarray(counts, np.int64),
-            np.ascontiguousarray(dst, np.int64),
-            np.ascontiguousarray(a_rows, np.int32),
-            np.ascontiguousarray(a_cols, np.int32),
-            np.ascontiguousarray(a_vals, np.float32),
-            np.ascontiguousarray(order, np.int64), ro, co, vo, oo,
-        )
-        return ro, co, vo, oo
-    d = np.repeat(dst, counts) + (
-        np.arange(n, dtype=np.int64) - np.repeat(t_first, counts)
-    )
-    ro[d] = a_rows
-    co[d] = a_cols
-    vo[d] = a_vals
-    oo[d] = order
-    return ro, co, vo, oo
 
 
 def to_bcoo(x, dtype=np.float32):

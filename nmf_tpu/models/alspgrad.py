@@ -7,8 +7,8 @@ alpha decided at the first trial, :138-178) and a projected-gradient-norm
 stopping rule (:9-19).  The outer updater multiplies ``tolg`` by 0.1 whenever
 an inner solve converges in a single iteration (:409-421).
 
-TPU-first notes
----------------
+Design notes
+------------
 Both inner solves reduce to the same canonical problem
 ``min_{Y >= 0} 0.5 || A Y - B ||^2`` given the Grams ``AtA = A'A`` (k x k)
 and ``AtB = A'B`` (k x m):
@@ -31,9 +31,9 @@ flattening costs no extra FLOPs and the numerics match the nested form
 exactly in exact arithmetic (the gradient is always freshly computed, never
 incrementally updated; in floats the two compiled programs differ only by
 fusion/reduction-order rounding, ~1 ulp).  Motivation: XLA compile time for nested while_loops is
-super-linear in nesting depth — the nested form compiled in ~340 s on v5e
-for the full outer solve, the flat form in ~40 s — and per-iteration the
-single loop avoids the loop-entry/exit synchronization of the inner loop.
+super-linear in nesting depth (the nested form compiled about 8x slower
+than the flat one for the full outer solve), and per-iteration the single
+loop avoids the loop-entry/exit synchronization of the inner loop.
 """
 
 from __future__ import annotations
@@ -444,4 +444,4 @@ def _objective(upd: ALSPGrad, state, X, W, H):
 
 
 register_solver(ALSPGrad, prepare=_prepare, update=_update,
-                objective=_objective, renumber_safe=True)
+                objective=_objective)

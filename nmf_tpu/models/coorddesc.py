@@ -4,13 +4,13 @@ Behavioral reference: /root/reference/src/coorddesc.jl (options :24-46,
 regularization split :61-79, core sweep :109-159, transpose-trick H update
 :162-175).
 
-TPU-first notes
----------------
+Design notes
+------------
 The reference's core loop is a strictly sequential scalar Newton sweep over
 (component t, row i).  The data dependency is only across *components* — all
-rows are independent — so on TPU the sweep becomes a ``lax.fori_loop`` over
-the k components, each step updating one full column of W with a rank-1
-matvec ``W @ HHt[:, t]`` on the VPU/MXU.  Exact HALS semantics (each
+rows are independent — so the sweep becomes a ``lax.fori_loop`` over the k
+components, each step updating one full column of W with a rank-1 matvec
+``W @ HHt[:, t]``.  Exact HALS semantics (each
 coordinate uses already-updated values of the other components) are
 preserved; only the row dimension is vectorized.
 
@@ -144,4 +144,4 @@ def _objective(upd: CoordinateDescent, state, X, W, H):
 
 
 register_solver(CoordinateDescent, prepare=_prepare, update=_update,
-                objective=_objective, renumber_safe=True)
+                objective=_objective)

@@ -4,18 +4,18 @@ algorithm.
 Behavioral reference: /root/reference/src/greedycd.jl (options :10-31, core
 ``_update_GreedyCD!`` :94-166, transpose-trick H update :168-178).
 
-TPU-first notes
----------------
+Design notes
+------------
 The reference's inner loop has a *data-dependent trip count per row*: each row
 greedily applies its best coordinate until the best score drops below
 ``nu * p_init`` or ``k^2`` steps.  The rows are mutually independent, so we
 ``vmap`` a bounded ``lax.while_loop`` over the rows — JAX's batching rule
 masks finished rows automatically, so every row follows exactly the
-reference's schedule while the TPU executes all rows in lockstep (run length
-= the slowest row, each step being VPU work on k-vectors).
+reference's schedule while the device executes all rows in lockstep (run
+length = the slowest row, each step being elementwise work on k-vectors).
 
 The Gram setup (``P = H H'``, ``Z = X H'``, ``G = W P - Z + lambda``) is
-plain MXU matmuls; with X sharded it is a k x k all-reduce plus sharded
+plain matmuls; with X sharded it is a k x k all-reduce plus sharded
 matmuls, and the per-row loop is local to each row shard.
 """
 
@@ -88,11 +88,11 @@ def _scores(w_row, G_row, denom, Pdiag, dt):
     return S, D
 
 
-# Lockstep-mitigation knobs (see docs/tpu_results.md "GreedyCD lockstep"):
-# the vmapped while_loop runs EVERY row for the slowest row's trip count.
-# Measured on the config4 problem (163k x 59k, k=128): per-sweep max trips are
-# 136-192 (the k^2 cap never binds) while the mean collapses to 3-9 after two
-# sweeps — ~40x wasted full-width VPU work.  Fix: an adaptive *compaction
+# Lockstep-mitigation knobs: the vmapped while_loop runs EVERY row for the
+# slowest row's trip count.  Counted on the config4 problem (163k x 59k,
+# k=128; benchmarks/greedycd_trips.py): per-sweep max trips are 136-192 (the
+# k^2 cap never binds) while the mean collapses to 3-9 after two sweeps —
+# ~40x wasted full-width work.  Fix: an adaptive *compaction
 # cascade*.  Masked full-width steps run only while the active-row count
 # exceeds the next (1/shrink-sized) buffer; then the still-active rows are
 # gathered into that buffer and the loop continues there, shrinking again as
@@ -112,8 +112,8 @@ def _halfstep(X, W, Ht, lam):
 
     Above ``config.greedycd_cascade["slab_rows"]`` rows, the update runs as
     a sequential ``lax.map`` over row slabs: the full-width G/S/D scratch
-    is 4 (rows x k) f32 arrays (8 GB at the 2M x 256 config6 slab — an HBM
-    OOM on a 16 GB chip), while rows are mutually independent given the
+    is 4 (rows x k) f32 arrays (8 GB at the 2M x 256 config6 slab), while
+    rows are mutually independent given the
     shared Grams, so slabbing only needs the global ``p_init`` agreed first
     (a masked max over a scoring pass).  Per-row schedules — and therefore
     results — are bit-identical to the full-width path (pinned in
@@ -318,4 +318,4 @@ def _objective(upd: GreedyCD, state, X, W, H):
 
 
 register_solver(GreedyCD, prepare=_prepare, update=_update,
-                objective=_objective, renumber_safe=True)
+                objective=_objective)

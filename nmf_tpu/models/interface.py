@@ -8,7 +8,7 @@ Defaults mirror the reference exactly: ``init="nndsvdar"``,
 ``alg="greedycd"``, ``maxiter=100``, ``tol=cbrt(eps(T)/100)``,
 ``replicates=1`` (src/interf.jl:4-9).
 
-TPU extensions beyond the reference surface:
+Extensions beyond the reference surface:
 * ``key``/``seed`` — explicit PRNG threading (the reference uses Julia's
   global RNG); identical keys give identical runs across hosts.
 * ``mesh`` — a ``jax.sharding.Mesh`` with ("rows", "cols") axes; X, W, H are

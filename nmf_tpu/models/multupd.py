@@ -3,19 +3,18 @@
 Behavioral reference: /root/reference/src/multupd.jl (options & validation
 :18-43, MSE updater :56-116, divergence updater :121-193).
 
-TPU-first notes
----------------
+Design notes
+------------
 * The MSE H-step needs ``W'X`` and ``W'W H``.  The reference computes the
   latter as ``W' (W H)`` (O(p k n) flops); we use the Gram form
   ``(W'W) H`` (O(p k^2 + k^2 n)) — mathematically identical, far cheaper for
   p, n >> k, and it never touches X or a p x n buffer, so with X row/col
   sharded the H-step needs only a k x k all-reduce of ``W'W``.
-* All elementwise update bodies fuse into the matmul epilogues under XLA; a
-  Pallas fused variant is provided in ``nmf_tpu.ops.pallas``.
+* All elementwise update bodies fuse into the matmul epilogues under XLA.
 * The divergence updater's p x n quotient ``Q = X ./ (W H + delta)`` is the
   memory hot spot (reference holds it in a full buffer,
   src/multupd.jl:128-145); XLA fuses it with the following matmul so it is
-  never round-tripped to HBM more than once.
+  never round-tripped to device memory more than once.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ import jax.numpy as jnp
 
 from ..ops import matops
 from ..ops.objectives import kl_objective, mse_objective
-from .. import config as _config
 from ..utils.dtypes import sqrt_eps
 from .common import Result, data_field, nmf_skeleton, register_solver, static_field
 
@@ -113,26 +111,14 @@ def _update_mse(upd: MultUpdate, state, X, W, H):
     lam_w = jnp.asarray(upd.lambda_w, dt)
     lam_h = jnp.asarray(upd.lambda_h, dt)
 
-    use_pallas = _config.pallas_enabled() and not matops.is_sparse(X)
-
     if upd.update_H:
         WtX = matops.mtm(W.T, X)
-        if use_pallas:
-            from ..ops.pallas.mu import mu_factor_update
-
-            H = mu_factor_update(H, W.T @ W, WtX, lam_h, sqrt_eps(dt))
-        else:
-            WtWH = (W.T @ W) @ H
-            H = H * (jnp.maximum(zero, WtX - lam_h) / (WtWH + delta))
+        WtWH = (W.T @ W) @ H
+        H = H * (jnp.maximum(zero, WtX - lam_h) / (WtWH + delta))
 
     XHt = matops.mm(X, H.T)
-    if use_pallas:
-        from ..ops.pallas.mu import mu_factor_update
-
-        W = mu_factor_update(W.T, H @ H.T, XHt.T, lam_w, sqrt_eps(dt)).T
-    else:
-        WHHt = W @ (H @ H.T)
-        W = W * (jnp.maximum(zero, XHt - lam_w) / (WHHt + delta))
+    WHHt = W @ (H @ H.T)
+    W = W * (jnp.maximum(zero, XHt - lam_w) / (WHHt + delta))
     return W, H, state
 
 
@@ -147,8 +133,6 @@ def _update_div(upd: MultUpdate, state, X, W, H):
     lam_w = jnp.maximum(jnp.asarray(upd.lambda_w, dt), delta)
     lam_h = jnp.maximum(jnp.asarray(upd.lambda_h, dt), delta)
 
-    use_pallas = _config.pallas_enabled() and not matops.is_sparse(X)
-
     def quotient(W, H):
         # Q = X ./ (WH + delta); for sparse X this is an SDDMM at X's
         # pattern (0/y = 0) and the dense p x n WH is never formed.
@@ -158,21 +142,11 @@ def _update_div(upd: MultUpdate, state, X, W, H):
         return X / (W @ H + delta)
 
     if upd.update_H:
-        if use_pallas:
-            from ..ops.pallas.mu import wtq as _wtq
-
-            WtQ = _wtq(X, W, H, sqrt_eps(dt))
-        else:
-            WtQ = matops.mtm(W.T, quotient(W, H))
+        WtQ = matops.mtm(W.T, quotient(W, H))
         sW = jnp.sum(W, axis=0)  # (k,)
         H = H * (WtQ / (sW[:, None] + lam_h))
 
-    if use_pallas:
-        from ..ops.pallas.mu import qht as _qht
-
-        QHt = _qht(X, W, H, sqrt_eps(dt))
-    else:
-        QHt = matops.mm(quotient(W, H), H.T)
+    QHt = matops.mm(quotient(W, H), H.T)
     sH = jnp.sum(H, axis=1)  # (k,)
     W = W * (QHt / (sH[None, :] + lam_w))
     return W, H, state
@@ -184,11 +158,5 @@ def _objective(upd: MultUpdate, state, X, W, H):
     return kl_objective(X, W, H)
 
 
-# Both objectives are renumber-equivariant: mse consumes X only through
-# mm/mtm; div's Q refresh speaks the CSR-order VALUE layout (nnz_values /
-# sddmm / with_values), which renumbering never touches — the CSR arrays
-# stay in original (row, col) order and the perm/inv slot maps already
-# target the renumbered tiling.  (A slimmed X drops those maps, but then
-# the div quotient raises renumbered or not — slim() is MSE-only.)
 register_solver(MultUpdate, prepare=_prepare, update=_update,
-                objective=_objective, renumber_safe=True)
+                objective=_objective)

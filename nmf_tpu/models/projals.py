@@ -5,10 +5,10 @@ Behavioral reference: /root/reference/src/projals.jl — minimize
 unconstrained least squares (via Cholesky on the k x k Grams) followed by
 projection onto the non-negative orthant (:89-106).
 
-TPU-first notes: both Grams are k x k and replicated; with X sharded over a
+Design notes: both Grams are k x k and replicated; with X sharded over a
 (rows, cols) mesh the only communication per sweep is a k x k all-reduce of
 ``W'W`` / ``H H'`` and the sharded matmuls ``W'X`` / ``X H'`` — XLA inserts
-those from sharding annotations.  Cholesky runs replicated on every chip
+those from sharding annotations.  Cholesky runs replicated on every device
 (cheaper than communicating), see ``nmf_tpu.ops.linalg``.
 """
 
@@ -72,11 +72,11 @@ def _update(upd: ProjectedALS, state, X, W, H):
     lam_h = jnp.asarray(upd.lambda_h, dt)
     eye = jnp.eye(k, dtype=dt)
 
-    # The k x k Grams feed a Cholesky: computed at reduced TPU matmul
-    # precision (3-pass bf16) their rounding can exceed the lambda ridge and
-    # make them *indefinite* -> NaN factors (observed at 100k x 10k k=64,
-    # Gram scale ~1.6e5, min eig -2.6e-3 vs lambda 4.9e-3).  They are
-    # O(k/n) of the sweep's flops, so exact f32 here is free.
+    # The k x k Grams feed a Cholesky: computed at a reduced matmul
+    # precision their rounding can exceed the lambda ridge and make them
+    # *indefinite* -> NaN factors (at 100k x 10k k=64 the Gram scale is
+    # ~1.6e5 against a lambda of 4.9e-3).  They are O(k/n) of the sweep's
+    # flops, so exact f32 here is free, whatever precision the caller set.
     hi = jax.lax.Precision.HIGHEST
     if upd.update_H:
         WtW = jnp.matmul(W.T, W, precision=hi) + lam_h * eye
@@ -99,4 +99,4 @@ def _objective(upd: ProjectedALS, state, X, W, H):
 
 
 register_solver(ProjectedALS, prepare=_prepare, update=_update,
-                objective=_objective, renumber_safe=True)
+                objective=_objective)

@@ -1,4 +1,4 @@
-"""Vmapped multi-start replicates — a TPU-first extension.
+"""Vmapped multi-start replicates — an extension of the reference.
 
 The reference runs its random restarts sequentially on the host
 (/root/reference/src/interf.jl:85-101).  Here the restarts are an

@@ -6,9 +6,9 @@ Behavioral reference: /root/reference/src/spa.jl — the ``spa`` initialization
 the ``SPA`` "solver" (:71-80) is a statistics pass returning
 ``Result(W, H, 0, true, objv)``.
 
-TPU-first notes: the k anchor-selection rounds are a ``lax.fori_loop``; each
+Design notes: the k anchor-selection rounds are a ``lax.fori_loop``; each
 round is one fused column-norm reduction + argmax + a rank-1 deflation
-(an outer-product update), all VPU/MXU work.  H comes from the batched FNNLS
+(an outer-product update), all dense device work.  H comes from the batched FNNLS
 component (``nmf_tpu.ops.fnnls``) instead of an external package.
 """
 

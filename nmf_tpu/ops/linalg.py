@@ -2,7 +2,7 @@
 
 The reference reaches LAPACK ``potrf!/potrs!/potri!`` through Julia
 (/root/reference/src/utils.jl:63-84) for the Cholesky solves in ProjectedALS.
-On TPU the Grams are k x k (k <= a few hundred), replicated across the mesh, so
+Here the Grams are k x k (k <= a few hundred), replicated across the mesh, so
 we use XLA's Cholesky (``jax.scipy.linalg``) directly — no sharding, no custom
 kernel needed; the cost is negligible next to the p x n work.
 """

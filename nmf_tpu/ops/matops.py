@@ -6,7 +6,7 @@ through ``mul!`` and elementwise loops, so Julia sparse matrices work
 same role is played by this module: every solver routes its X-products
 through these functions, so any X supported here works in every solver.
 
-Sparse design (TPU-first):
+Sparse design:
 
 * ``X @ H'`` and ``W' X`` are sparse-dense matmuls (``bcoo_dot_general``);
 * the divergence updater's quotient ``Q = X ./ (WH + delta)`` has **X's
@@ -17,13 +17,14 @@ Sparse design (TPU-first):
   <W'W, HH'>`` with the inner product sampled at nnz, and
   ``sum(WH) = colsum(W) . rowsum(H)`` for the KL mass term.
 
-A custom Pallas CSR gather-matmul backend can be slotted behind ``mm``/
-``sddmm`` without touching any solver.
+The CSR-order stores (``TiledCSR`` on one device, ``ShardedTiled`` on a
+mesh) run their products through ``nmf_tpu.ops.tiled``: plain XLA, with the
+SDDMM a Triton kernel on the GPU; another product can be slotted behind
+``mm``/``mtm``/``sddmm`` without touching any solver.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 try:
@@ -33,12 +34,6 @@ try:
 except Exception:  # pragma: no cover
     jsparse = None
     BCOO = ()
-
-
-def _tiled_cls():
-    from .sparse_format import TiledCSR
-
-    return TiledCSR
 
 
 def is_tiled(X) -> bool:
@@ -91,7 +86,7 @@ def mm(X, D):
 
         return sharded_mm(X, D).astype(D.dtype)
     if is_tiled(X):
-        from .pallas.sparse import tiled_mm
+        from .tiled import tiled_mm
 
         return tiled_mm(X, D).astype(D.dtype)
     if is_sparse(X):
@@ -108,7 +103,7 @@ def mtm(D, X):
 
         return sharded_mtm(X, D.T).T.astype(D.dtype)
     if is_tiled(X):
-        from .pallas.sparse import tiled_mtm
+        from .tiled import tiled_mtm
 
         return tiled_mtm(X, D.T).T.astype(D.dtype)
     if is_sparse(X):
@@ -121,39 +116,18 @@ def mtm(D, X):
     return D @ X
 
 
-def _slim_guard(X, attr, op):
-    """Clear error for CSR-order access on a slimmed TiledCSR (slim() drops
-    values/row_idx/col_idx and the refresh maps for MSE capacity solves;
-    without this the caller dies with an obscure AttributeError/TypeError
-    deep inside a jit trace)."""
-    val = getattr(X, attr)
-    if val is None:
-        raise ValueError(
-            f"{op} needs the CSR-order arrays, but this TiledCSR was "
-            "slim()-med (MSE capacity mode drops them); rebuild with "
-            "build_tiled for divergence/per-nnz access"
-        )
-    return val
-
-
 def sddmm(W, H, X):
     """Values of ``(W @ H)`` sampled at X's nonzero positions, aligned with
-    ``nnz_values(X)`` (only valid for sparse X).  Flat (nnz,) for single-chip
-    formats; the fwd chunk-slot layout for ``ShardedTiled``."""
+    ``nnz_values(X)`` (only valid for sparse X).  Flat (nnz,) for one-device
+    formats; the (R, C, L) entry layout for ``ShardedTiled``."""
     if is_sharded_tiled(X):
         from .sparse_shard import sharded_sddmm
 
         return sharded_sddmm(X, W, H)
     if is_tiled(X):
-        from .sparse_format import TiledSideC
+        from .tiled import tiled_sddmm
 
-        if jax.default_backend() != "cpu" and isinstance(X.fwd, TiledSideC):
-            from .pallas.sparse import tiled_sddmm
-
-            return tiled_sddmm(X, W, H)
-        # pure gather-gather-reduce: no scatter involved
-        ri = _slim_guard(X, "row_idx", "sddmm")
-        return jnp.sum(W[ri, :] * H[:, X.col_idx].T, axis=1)
+        return tiled_sddmm(X, W, H)
     Xb = _as_bcoo(X)
     return jsparse.bcoo_dot_general_sampled(
         W, H, Xb.indices, dimension_numbers=(((1,), (0,)), ((), ()))
@@ -178,15 +152,13 @@ def nnz_values(X):
 
         return sharded_nnz_values(X)
     if is_tiled(X):
-        return _slim_guard(X, "values", "nnz_values")
+        return X.values
     return _as_bcoo(X).data
 
 
 def sq_norm(X):
     """``sum(X**2)``."""
-    if is_sharded_tiled(X):
-        return X.stats[1]
-    if is_tiled(X) and X.stats is not None:
+    if is_tiled(X) or is_sharded_tiled(X):
         return X.stats[1]
     if is_sparse(X):
         v = nnz_values(X)
@@ -195,9 +167,7 @@ def sq_norm(X):
 
 
 def total_sum(X):
-    if is_sharded_tiled(X):
-        return X.stats[0]
-    if is_tiled(X) and X.stats is not None:
+    if is_tiled(X) or is_sharded_tiled(X):
         return X.stats[0]
     if is_sparse(X):
         return jnp.sum(nnz_values(X))
@@ -215,9 +185,7 @@ def colsums(X):
 
         return sharded_colsums(X)
     if is_tiled(X):
-        return jnp.zeros((X.shape[1],), X.dtype).at[
-            _slim_guard(X, "col_idx", "colsums")
-        ].add(X.values)
+        return jnp.zeros((X.shape[1],), X.dtype).at[X.col_idx].add(X.values)
     if is_sparse(X):
         return jsparse.bcoo_reduce_sum(_as_bcoo(X), axes=(0,)).todense()
     return jnp.sum(X, axis=0)
@@ -230,18 +198,14 @@ def rowsums(X):
 
         return sharded_rowsums(X)
     if is_tiled(X):
-        return jnp.zeros((X.shape[0],), X.dtype).at[
-            _slim_guard(X, "row_idx", "rowsums")
-        ].add(X.values)
+        return jnp.zeros((X.shape[0],), X.dtype).at[X.row_idx].add(X.values)
     if is_sparse(X):
         return jsparse.bcoo_reduce_sum(_as_bcoo(X), axes=(1,)).todense()
     return jnp.sum(X, axis=1)
 
 
 def all_nonneg(X):
-    if is_sharded_tiled(X):
-        return X.stats[2] >= 0
-    if is_tiled(X) and X.stats is not None:
+    if is_tiled(X) or is_sharded_tiled(X):
         return X.stats[2] >= 0
     if is_sparse(X):
         return jnp.all(nnz_values(X) >= 0)
@@ -249,9 +213,7 @@ def all_nonneg(X):
 
 
 def transpose(X):
-    if is_sharded_tiled(X):
-        return X.transpose()
-    if is_tiled(X):
+    if is_tiled(X) or is_sharded_tiled(X):
         return X.transpose()
     if is_sparse(X):
         return jsparse.bcoo_transpose(_as_bcoo(X), permutation=(1, 0))
@@ -266,5 +228,5 @@ def col_indices(X):
 
         return sharded_col_ids(X)
     if is_tiled(X):
-        return _slim_guard(X, "col_idx", "col_indices")
+        return X.col_idx
     return _as_bcoo(X).indices[:, 1]

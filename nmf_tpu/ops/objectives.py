@@ -5,11 +5,11 @@ squared differences) and ``gkldiv`` (generalized KL divergence), always on a
 fully-materialized ``WH`` buffer (e.g. /root/reference/src/multupd.jl:81,148,
 src/projals.jl:66, src/spa.jl:73-75).
 
-TPU-first redesign: the p*n product never needs to live in HBM.  We evaluate
+Redesign: the p*n product never needs to live in device memory.  We evaluate
 objectives *tile-wise* — a `lax.map` over column blocks of H, each block doing
-one MXU matmul (W @ H_block) and a fused VPU reduction.  For small problems a
-single fused expression is used (XLA fuses subtract/square/sum into the matmul
-epilogue).  A Pallas kernel version lives in ``nmf_tpu.ops.pallas``.
+one matmul (W @ H_block) and a fused reduction.  For small problems a single
+fused expression is used (XLA fuses subtract/square/sum into the matmul
+epilogue).
 """
 
 from __future__ import annotations
@@ -84,23 +84,14 @@ def mse_objective(X, W, H):
     product sampled at the nonzeros (SDDMM) — WH is never materialized.
     """
     from . import matops
-    from .. import config as _config
 
     half = jnp.asarray(0.5, W.dtype)
     if matops.is_sparse(X) or matops.is_sharded_tiled(X):
-        # Gram identity with only mm(): <X, WH> = <W, X @ H'>.  The SDDMM
-        # form (<values, WH_at_nnz>) is avoided on purpose: on a tiling
-        # with a large hybrid dense store it materializes per-block W/H
-        # panels + per-slot samples — measured 24 GB of HLO temps (HBM
-        # OOM) at the config6 slab's 78k dense blocks, vs one (p, k)
-        # temp here.
+        # Gram identity with only mm(): <X, WH> = <W, X @ H'>, one (p, k)
+        # temporary and the product the solvers already run.
         cross = jnp.vdot(W, matops.mm(X, H.T))
         wh_sq = jnp.vdot(W.T @ W, H @ H.T)
         return half * (matops.sq_norm(X) - 2 * cross + wh_sq)
-    if _config.pallas_enabled() and X.size > _SMALL:
-        from .pallas.objectives import mse_objective_pallas
-
-        return mse_objective_pallas(X, W, H)
     if X.size <= _SMALL:
         return half * sqL2dist(X, W @ H)
     return half * _blockwise_sum(X, W, H, sqL2dist)
@@ -126,12 +117,6 @@ def kl_objective(X, W, H, delta=None):
         )
         mass = jnp.vdot(jnp.sum(W, axis=0), jnp.sum(H, axis=1))
         return nnz_term + mass
-    from .. import config as _config
-
-    if _config.pallas_enabled() and X.size > _SMALL:
-        from .pallas.objectives import kl_objective_pallas
-
-        return kl_objective_pallas(X, W, H)
     if X.size <= _SMALL:
         return gkldiv(X, W @ H)
     return _blockwise_sum(X, W, H, gkldiv)

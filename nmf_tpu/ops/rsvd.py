@@ -1,8 +1,8 @@
-"""Randomized SVD (Halko, Martinsson & Tropp 2011) — the TPU-native
+"""Randomized SVD (Halko, Martinsson & Tropp 2011) — the device-side
 replacement for ``RandomizedLinAlg.rsvd`` which the reference's NNDSVD
 initialization calls (/root/reference/src/initialization.jl:83).
 
-Design: sketch ``Y = X @ Omega`` is one big sharded MXU matmul (the only pass
+Design: sketch ``Y = X @ Omega`` is one big sharded matmul (the only pass
 over X besides the optional power iterations); the tall-skinny QR is a
 **distributed shifted CholeskyQR3** (``ops.tsqr``) — Gram psum + replicated
 l x l Cholesky + local back-substitution, so the p-row panel is never

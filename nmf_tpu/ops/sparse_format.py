@@ -1,25 +1,14 @@
-"""Tiled-CSR format for the TPU sparse matmul kernel.
+"""Sparse store for one device: X's nonzeros as CSR-order entries.
 
-Layout (see docs/sparse_kernel_design.md): the matrix is cut into
-(128-row x 128-col) tiles, grouped into row *stripes*; each tile's nonzeros
-are padded into 128-slot chunks holding (local_row, local_col, value).  The
-kernel (``nmf_tpu.ops.pallas.sparse``) walks stripes x column-panels keeping
-the D panel and the out stripe resident in VMEM; each chunk costs one
-lane-gather + one 128x128 one-hot MXU scatter.
+A ``TiledCSR`` holds each nonzero once, as an entry (row, col, value) in
+row-major order, plus the order that sorts the entries by column.  The
+products (``nmf_tpu.ops.tiled``) are a gather, scale and sorted segment-sum
+over the entries in one of the two orders, and the SDDMM samples ``W @ H``
+at every entry.  Elementwise value updates (the divergence sweep's
+``Q = X / (WH + delta)``) replace ``values`` and keep the pattern.
 
-Tiles follow grid order (stripe, col_panel, row_panel_within_stripe) so the
-chunk arrays are consumed with plain BlockSpecs.  Tiles with more than 128
-nonzeros spill into duplicate chunks, which the accumulating kernel handles
-naturally.
-
-Both orientations are prebuilt (for ``X @ D`` and ``X' @ D``), plus
-CSR-order COO arrays (for SDDMM/reductions) and permutations mapping
-CSR-order values into each orientation's chunk slots — so elementwise value
-updates (the divergence sweep's ``Q = X / (WH + delta)``) are two scatters,
-no host round-trip.
-
-Preprocessing is numpy here; the C++ binner in ``native/`` covers the
-large-scale ingestion path.
+The host build sorts the COO input once (the native radix sort in
+``nmf_tpu.io.loader`` when it is built, numpy otherwise).
 """
 
 from __future__ import annotations
@@ -32,14 +21,7 @@ import numpy as np
 
 from ..models.common import data_field, static_field
 
-TILE = 128  # row-panel height == col-panel width == chunk capacity
-DENSE_GROUP = 8  # dense-tile blocks per kernel grid step (multiple of 4)
-QUAD_GROUP = 8  # quad-tail chunks per kernel grid step
-# (quad-tail sub-segment width is per-tiling: TiledSideC.quad_seg, 32 or 16)
-
 __all__ = [
-    "TILE",
-    "TiledSideC",
     "TiledCSR",
     "build_tiled",
     "from_bcoo",
@@ -48,132 +30,28 @@ __all__ = [
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
-class TiledSideC:
-    """Compact orientation: only *nonempty* tiles carry chunks.
+class TiledCSR:
+    """X (p x n) as CSR-order entries.
 
-    Chunks are stored flat, grouped by (stripe, col_panel) with each group
-    padded to a multiple of ``group`` chunks; per-window scalar maps
-    (``win_panel``/``win_stripe``, +1 sentinel entry) drive the kernel's
-    scalar-prefetched index maps, and ``chunk_rp`` carries each chunk's row
-    panel within its stripe.  Versus a dense stripe x panel grid (the
-    retired round-1 layout) this drops
-    both the empty-tile chunks and the uniform ``max_chunks`` padding — the
-    pad ratio falls from ``max_tile_nnz``-driven to the tail-chunk minimum,
-    which is what makes power-law data (the MovieLens-style config) viable.
+    ``row_order`` / ``col_order`` are (nnz,) int32 orders of the entries
+    that sort them by row and by column; None means the entries already are
+    in that order.  ``build_tiled`` sorts the entries by row, so
+    ``row_order`` starts None; ``transpose()`` swaps the two.
     """
 
-    # (nwin*group, TILE) int32: packed slot coordinates ``lcol << 7 | lrow``
-    # (row within the 128-row panel, col within the span*128-wide panel) —
-    # one array instead of two at the same Mosaic-friendly dtype, 8 B/slot
-    # with vals instead of 12 (the round-4 capacity-scale HBM diet)
-    coords: jax.Array = data_field()
-    vals: jax.Array = data_field()  # (nwin*group, TILE) float
-    # (nwin, group//4) int32: per-chunk row panel in stripe, 4 packed per
-    # word (byte-lanes) so the scalar-prefetch operand fits SMEM at 10M+ nnz
-    chunk_rp: jax.Array = data_field()
-    win_panel: jax.Array = data_field()  # (nwin+1,) int32 col panel per window
-    win_stripe: jax.Array = data_field()  # (nwin+1,) int32 stripe per window (-1 sentinel)
-    perm: jax.Array = data_field()  # (nnz,) int64: CSR-order slot in vals
-    n_stripes: int = static_field(default=1)
-    n_colpanels: int = static_field(default=1)
-    n_windows: int = static_field(default=1)
-    group: int = static_field(default=8)
-    panels_per_stripe: int = static_field(default=1)
-    rows: int = static_field(default=0)
-    cols: int = static_field(default=0)
-    # (nchunks*TILE,) int32: CSR-order nnz index per CHUNK slot (inverse of
-    # perm restricted to the chunk region; padding slots point one past the
-    # end) — value refreshes are a gather.  The dense/quad regions have
-    # their own compact maps below: materializing one inverse over the whole
-    # flat slot space would cost O(ndblk * TILE^2) host time and device
-    # memory (measured 19 s + 1.9 GB at the 17.6M-nnz config4 build) for a
-    # map that only with_values consumes.
-    inv: jax.Array | None = data_field(default=None)
-    # Hybrid dense-tile store: tiles with >= dense_tile_nnz nonzeros skip the
-    # chunk pipeline and ride the MXU as plain 128x128 blocks (no gathers, no
-    # tail padding).  ``dvals[b]`` is block b in (col, row) layout so the
-    # kernel computes ``out_panel += D_panel @ dvals[b]`` directly.  Blocks
-    # are grouped DENSE_GROUP per grid step: same (stripe, col panel) per
-    # window, zero-padded; per-window maps mirror win_panel/win_stripe.
-    dvals: jax.Array | None = data_field(default=None)  # (ndblk, TILE, TILE)
-    dblk_panel: jax.Array | None = data_field(default=None)  # (nwin_d+1,) int32
-    dblk_stripe: jax.Array | None = data_field(default=None)  # (nwin_d+1,) int32, -1 sentinel
-    dblk_rp: jax.Array | None = data_field(default=None)  # (nwin_d, DG//4) int32 packed
-    n_dblocks: int = static_field(default=0)  # padded block count (DG-multiple)
-    # chunk tiles span this many consecutive 128-col panels (wide-tail mode);
-    # lcols is in [0, span*128), n_colpanels counts WIDE panels
-    span: int = static_field(default=1)
-    # Quad-tail store (the round-3 tail experiment, docs/sparse_kernel_design):
-    # tiles with <= quad_tail_nnz nonzeros are packed FOUR per chunk as fixed
-    # 32-slot sub-segments sharing one (stripe, col panel) — one lane gather
-    # serves all four, each sub-segment one-hot-scatters to its own row
-    # panel.  Per-chunk metadata is ONE int32 (4 rp bytes): the same packed-
-    # word SMEM budget as the plain chunks.
-    qvals: jax.Array | None = data_field(default=None)  # (nq, TILE)
-    qlrows: jax.Array | None = data_field(default=None)  # (nq, TILE) int32
-    qlcols: jax.Array | None = data_field(default=None)  # (nq, TILE) int32
-    q_rp: jax.Array | None = data_field(default=None)  # (nwin_q, QG) int32, 4 rp/word
-    qwin_panel: jax.Array | None = data_field(default=None)  # (nwin_q+1,) int32
-    qwin_stripe: jax.Array | None = data_field(default=None)  # (nwin_q+1,) int32, -1 sentinel
-    n_qchunks: int = static_field(default=0)  # padded chunk count (QG-multiple)
-    # sub-segment width of the quad-tail chunks: 32 = four tiles per chunk
-    # (one rp word each), 16 = eight tiles per chunk (two rp words) — the
-    # round-3 deep-tail variant; q_rp is (nwin_q, QG * (TILE//quad_seg)//4)
-    quad_seg: int = static_field(default=32)
-    # (nq*TILE,) int32: CSR-order nnz index per quad slot (see inv)
-    qinv: jax.Array | None = data_field(default=None)
-    # dense-store refresh as a scatter pair — O(nnz_dense), never the
-    # O(ndblk*TILE^2) element space: dvals.flat[dense_slot] = new[dense_nnz]
-    dense_nnz: jax.Array | None = data_field(default=None)  # (nnz_dense,) int32
-    dense_slot: jax.Array | None = data_field(default=None)  # (nnz_dense,)
-    # COO dust band (round 5): tiles with <= coo_tail_nnz nonzeros skip the
-    # tile machinery entirely and ride XLA's sorted segment-sum.  At the
-    # config6 scale the sub-4-nnz tiles are ~1.4M tiles holding 3.7% of the
-    # nnz — ANY chunk scheme pads them 10-128x and the retired span-16 wide
-    # tiles spent ~16 lane-gathers per 128 slots on them; the pure-XLA band
-    # streams exactly nnz*k values.  Coordinates are in tiling (renumbered)
-    # space, sorted by this side's row for segment_sum.
-    coo_rows: jax.Array | None = data_field(default=None)  # (n_coo,) int32
-    coo_cols: jax.Array | None = data_field(default=None)  # (n_coo,) int32
-    coo_vals: jax.Array | None = data_field(default=None)  # (n_coo,) f32
-    # CSR-order nnz id per band entry (refresh map, like dense_nnz)
-    coo_nnz: jax.Array | None = data_field(default=None)
-    n_coo: int = static_field(default=0)
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class TiledCSR:
-    """Both orientations + CSR-order COO arrays."""
-
-    fwd: TiledSideC = data_field()  # X tiling (p x n)
-    bwd: TiledSideC = data_field()  # X' tiling (n x p)
-    row_idx: jax.Array = data_field()  # (nnz,) int32, CSR order, ORIGINAL coords
+    row_idx: jax.Array = data_field()  # (nnz,) int32
     col_idx: jax.Array = data_field()  # (nnz,) int32
     values: jax.Array = data_field()  # (nnz,)
-    # degree-sort renumbering (None = natural order): the tilings are built in
-    # renumbered coordinates so head rows/cols pack into dense tiles;
-    # ``*_perm[sorted] = original``, ``*_rank[original] = sorted``
-    row_perm: jax.Array | None = data_field(default=None)
-    row_rank: jax.Array | None = data_field(default=None)
-    col_perm: jax.Array | None = data_field(default=None)
-    col_rank: jax.Array | None = data_field(default=None)
     shape: tuple[int, int] = static_field(default=(0, 0))
-    # (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
-    # coo_tail_nnz) the matrix was built with — lets shard_problem rebuild an
-    # equivalent ShardedTiled.  parallel/sharding.py unpacks this
-    # positionally with a *rest tail (older pickles carry shorter tuples);
-    # APPEND new knobs at the end, never reorder.
-    build_opts: tuple | None = static_field(default=None)
-    # (sum, sum of squares, min) of the values, mirroring ShardedTiled's
-    # convention: lets sq_norm/total_sum/all_nonneg (the MSE objective and
-    # the front-door validation) run without touching the (nnz,) values
-    # array — which ``slim()`` drops from device entirely
+    # (sum, sum of squares, min) of the values, as ShardedTiled keeps them:
+    # sq_norm/total_sum/all_nonneg read these instead of the values
     stats: jax.Array | None = data_field(default=None)
+    row_order: jax.Array | None = data_field(default=None)
+    col_order: jax.Array | None = data_field(default=None)
 
     @property
     def dtype(self):
-        return self.fwd.vals.dtype
+        return self.values.dtype
 
     @property
     def nnz(self):
@@ -183,72 +61,11 @@ class TiledCSR:
     def ndim(self):
         return 2
 
-    def slim(self):
-        """Device-light view for MSE-family solves at capacity scale: drops
-        the CSR-order refresh maps (perm/inv/qinv + the dense scatter pair)
-        and the COO arrays — none of which the mm/mtm kernels or the
-        Gram-identity objective touch — keeping only the kernel operands,
-        the degree permutations, and ``stats``.  At the config6 slab
-        (2M x 200k, 85M nnz) this is ~4 GB of HBM the solve never reads.
-        ``with_values``/``tiled_sddmm`` (the divergence path) raise on a
-        slimmed instance; rebuild with ``build_tiled`` for those."""
-        strip = dict(perm=None, inv=None, qinv=None, dense_nnz=None,
-                     dense_slot=None, coo_nnz=None)
-        return dataclasses.replace(
-            self,
-            fwd=dataclasses.replace(self.fwd, **strip),
-            bwd=dataclasses.replace(self.bwd, **strip),
-            row_idx=None,
-            col_idx=None,
-            values=None,
-        )
-
     def with_values(self, new_values):
-        """Same pattern, new values (CSR order) — updates both orientations
-        (chunk slots, quad slots AND the hybrid dense-tile blocks when
-        present).  Chunk/quad regions refresh by an inverse-perm gather
-        (padding slots fill with 0); the dense store by an O(nnz_dense)
-        scatter — the O(ndblk*TILE^2) element space is never materialized."""
-
-        def refresh(side):
-            # per-region maps: inv covers exactly the chunk region and the
-            # dense store has its own scatter pair.  An instance with a full
-            # flat-slot-space inv (the pre-per-region encoding) must not
-            # fall through to a mis-sized reshape.
-            if side.inv is None or side.inv.size != side.vals.size or (
-                side.n_dblocks and side.dense_nnz is None
-            ) or (side.n_coo and side.coo_nnz is None):
-                raise ValueError(
-                    "TiledSideC with a legacy full-slot-space inv (or "
-                    "missing dense refresh maps) — rebuild the tiling "
-                    "with build_tiled(); pickled pre-round-3 instances "
-                    "are not supported"
-                )
-            kw = {
-                "vals": jnp.take(
-                    new_values, side.inv, mode="fill", fill_value=0
-                ).reshape(side.vals.shape)
-            }
-            if side.n_dblocks:
-                kw["dvals"] = (
-                    jnp.zeros(side.dvals.size, new_values.dtype)
-                    .at[side.dense_slot]
-                    .set(new_values[side.dense_nnz])
-                    .reshape(side.dvals.shape)
-                )
-            if side.n_qchunks:
-                kw["qvals"] = jnp.take(
-                    new_values, side.qinv, mode="fill", fill_value=0
-                ).reshape(side.qvals.shape)
-            if side.n_coo:
-                kw["coo_vals"] = new_values[side.coo_nnz].astype(jnp.float32)
-            return dataclasses.replace(side, **kw)
-
+        """Same pattern, new values (in entry order)."""
         v32 = new_values.astype(jnp.float32)
         return dataclasses.replace(
             self,
-            fwd=refresh(self.fwd),
-            bwd=refresh(self.bwd),
             values=new_values,
             stats=jnp.stack([jnp.sum(v32), jnp.sum(v32 * v32), jnp.min(v32)]),
         )
@@ -256,566 +73,49 @@ class TiledCSR:
     def transpose(self):
         return dataclasses.replace(
             self,
-            fwd=self.bwd,
-            bwd=self.fwd,
             row_idx=self.col_idx,
             col_idx=self.row_idx,
-            row_perm=self.col_perm,
-            row_rank=self.col_rank,
-            col_perm=self.row_perm,
-            col_rank=self.row_rank,
+            row_order=self.col_order,
+            col_order=self.row_order,
             shape=(self.shape[1], self.shape[0]),
         )
 
 
-def _uniq_sorted(a, counts=False, index=False, inverse=False):
-    """np.unique for an already-sorted key array.  np.unique re-sorts its
-    input unconditionally (O(n log n)); every call site in the binner feeds
-    keys that are sorted by construction, where one O(n) neighbor-diff scan
-    suffices — measured as a dominant slice of the config6 host build.
-    Returns (uniq, [first_index], [counts], [inverse]) per the flags."""
-    n = len(a)
-    if n == 0:
-        z = np.zeros(0, np.int64)
-        out = [a]
-        if index:
-            out.append(z)
-        if counts:
-            out.append(z)
-        if inverse:
-            out.append(z)
-        return tuple(out) if len(out) > 1 else a
-    change = np.empty(n, bool)
-    change[0] = True
-    np.not_equal(a[1:], a[:-1], out=change[1:])
-    first = np.flatnonzero(change)
-    out = [a[first]]
-    if index:
-        out.append(first)
-    if counts:
-        out.append(np.diff(np.append(first, n)))
-    if inverse:
-        out.append(np.cumsum(change) - 1)
-    return tuple(out) if len(out) > 1 else out[0]
-
-
-def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
-                        dense_thresh=None, tail_span=1, quad_tail_nnz=None,
-                        quad_seg=32, coo_tail_nnz=None):
-    """Bin (row, col, val) into the compact chunk layout for one orientation.
-
-    ``dense_thresh``: tiles with at least this many nonzeros are stored as
-    dense 128x128 blocks (the hybrid MXU path) instead of chunks.
-    ``tail_span``: chunk tiles span this many consecutive 128-col panels
-    (128 x span*128 wide tiles).  Ultra-sparse residuals (power-law tails
-    after the dense head is extracted) would otherwise burn a whole 128-slot
-    chunk per 128x128 tile; widening the tile collapses that padding at the
-    cost of a span-way decomposed lane-gather in the kernel.
-    ``quad_tail_nnz``: tiles with at most this many nonzeros (<= 32) are
-    packed FOUR per chunk as fixed 32-slot sub-segments (same stripe + col
-    panel, one row panel per sub-segment) — one lane gather serves all four
-    and the per-chunk metadata stays one int32 word.  Mutually exclusive
-    with tail_span > 1."""
-    if tail_span not in (1, 2, 4, 8, 16):
-        raise ValueError("tail_span must be one of 1, 2, 4, 8, 16")
-    if quad_seg not in (16, 32):
-        raise ValueError("quad_seg must be 16 or 32")
-    if quad_tail_nnz is not None:
-        if tail_span != 1:
-            raise ValueError("quad_tail_nnz requires tail_span == 1")
-        if not (1 <= quad_tail_nnz <= quad_seg):
-            raise ValueError(f"quad_tail_nnz must be in [1, {quad_seg}]")
-    if coo_tail_nnz is not None:
-        if coo_tail_nnz < 1:
-            raise ValueError("coo_tail_nnz must be >= 1")
-        if dense_thresh and coo_tail_nnz >= dense_thresh:
-            raise ValueError("coo_tail_nnz must be < dense_tile_nnz")
-    if group % 8:
-        raise ValueError(f"group must be a multiple of 8 (sublane tiling), got {group}")
-    n_rowpanels = -(-p // TILE)
-    n_colpanels = -(-n // TILE)
-    stripe_tiles = min(stripe_tiles, n_rowpanels)
-    if stripe_tiles > 256:
-        # row panels are byte-packed 4-per-int32 for the kernel's SMEM
-        # scalar-prefetch operand; rp values must fit one byte
-        raise ValueError(
-            f"stripe_tiles (clamped to {stripe_tiles}) must be <= 256 for the "
-            "packed row-panel encoding"
-        )
-    n_stripes = -(-n_rowpanels // stripe_tiles)
-
-    # stable argsort of the fused tile key == lexsort((rps, cp, stripe)),
-    # ~4x faster on 10M+ nnz (single radix pass instead of three; native
-    # parallel radix when libnmf_host is built).  Key build and the
-    # 4-array gather are single native passes too (round 5 — each replaced
-    # ~5 s of numpy full-array passes at the 84.6M-nnz config6 side).
-    from ..io.loader import chunk_fill, gather3k, stable_argsort, tile_key
-
-    key = tile_key(rows, cols, n_colpanels, stripe_tiles)
-    order = stable_argsort(key)
-    a_rows, a_cols, a_vals, akey = gather3k(order, rows, cols, vals, key)
-
-    tiles_all, counts_all = _uniq_sorted(akey, counts=True)
-    if dense_thresh and len(tiles_all):
-        tile_dense = counts_all >= dense_thresh
-    else:
-        tile_dense = np.zeros(len(tiles_all), bool)
-    if coo_tail_nnz and len(tiles_all):
-        tile_coo = (~tile_dense) & (counts_all <= coo_tail_nnz)
-    else:
-        tile_coo = np.zeros(len(tiles_all), bool)
-    if quad_tail_nnz and len(tiles_all):
-        tile_quad = (~tile_dense) & (~tile_coo) & (counts_all <= quad_tail_nnz)
-    else:
-        tile_quad = np.zeros(len(tiles_all), bool)
-    # ---- class partition (round 5): tiles are contiguous runs of the
-    # sorted arrays, so ONE pass (native nmf_class_extract) copies each
-    # tile's run into its class's contiguous region — dense | residual |
-    # quad | COO — gathering the CSR ids (``order``) along.  Replaces the
-    # repeat/mask/boolean-compress cascade that classified and extracted
-    # every class (~15 s per 84.6M-nnz config6 side).
-    from ..io.loader import class_extract
-
-    t_first_all = np.cumsum(counts_all) - counts_all
-    cls = np.ones(len(tiles_all), np.int8)  # 1 = residual chunk store
-    cls[tile_dense] = 0
-    cls[tile_quad] = 2
-    cls[tile_coo] = 3
-    dst = np.empty(len(tiles_all), np.int64)
-    sizes = []
-    dbase = 0
-    for cclass in range(4):
-        m = cls == cclass
-        cc = counts_all[m]
-        dst[m] = dbase + np.cumsum(cc) - cc
-        sizes.append(int(cc.sum()))
-        dbase += sizes[-1]
-    ar_p, ac_p, av_p, ids_p = class_extract(
-        t_first_all, counts_all, dst, a_rows, a_cols, a_vals, order
-    )
-    nd_nnz, nr_nnz, nq_nnz, nc_nnz = sizes
-    b_r = nd_nnz
-    b_q = b_r + nr_nnz
-    b_c = b_q + nq_nnz
-    s_rows, s_cols, s_vals = ar_p[b_r:b_q], ac_p[b_r:b_q], av_p[b_r:b_q]
-    ids_res = ids_p[b_r:b_q]
-
-    span = tail_span
-    cwidth = TILE * span
-    n_cpanels = -(-n // cwidth)
-    if span > 1:
-        # re-sort the residual by the coarse (stripe, wide panel, rp) key
-        s_ccp = s_cols // cwidth
-        s_st = (s_rows // TILE) // stripe_tiles
-        s_rp2 = (s_rows // TILE) % stripe_tiles
-        o_s = np.lexsort((s_rp2, s_ccp, s_st))
-        s_rows, s_cols, s_vals = s_rows[o_s], s_cols[o_s], s_vals[o_s]
-        ids_res = ids_res[o_s]
-        tkey = (
-            (s_st[o_s].astype(np.int64) * n_cpanels + s_ccp[o_s]) * stripe_tiles
-            + s_rp2[o_s]
-        )
-        tiles, t_first, counts = _uniq_sorted(tkey, index=True, counts=True)
-    else:
-        # span 1: the residual partition is still tile-sorted, so the
-        # per-tile ranges come straight from the classification — no tkey
-        # materialization, no second unique pass
-        o_s = None
-        rmask = cls == 1
-        tiles = tiles_all[rmask]
-        counts = counts_all[rmask]
-        t_first = np.cumsum(counts) - counts
-    nchunks_tile = -(-counts // TILE)
-    gkey_tile = tiles // stripe_tiles  # (stripe * n_cpanels + wide col panel)
-
-    if len(tiles):
-        g_uniq, g_first = _uniq_sorted(gkey_tile, index=True)
-        chunks_per_group = np.add.reduceat(nchunks_tile, g_first)
-    else:
-        g_uniq = np.zeros(0, np.int64)
-        chunks_per_group = np.zeros(0, np.int64)
-    padded_per_group = -(-chunks_per_group // group) * group
-
-    # every out stripe must be flushed at least once: give empty stripes a
-    # dummy all-padding group (group zero-chunks at col panel 0)
-    missing = np.setdiff1d(np.arange(n_stripes, dtype=np.int64), g_uniq // n_cpanels)
-    if len(missing):
-        g_uniq = np.concatenate([g_uniq, missing * n_cpanels])
-        padded_per_group = np.concatenate(
-            [padded_per_group, np.full(len(missing), group, np.int64)]
-        )
-        o2 = np.argsort(g_uniq, kind="stable")
-        g_uniq, padded_per_group = g_uniq[o2], padded_per_group[o2]
-
-    group_base = np.concatenate([[0], np.cumsum(padded_per_group)])[:-1]
-    total_chunks = int(padded_per_group.sum()) if len(padded_per_group) else group
-    if not len(padded_per_group):  # fully empty matrix, single dummy window
-        g_uniq = np.zeros(1, np.int64)
-        padded_per_group = np.full(1, group, np.int64)
-        group_base = np.zeros(1, np.int64)
-    n_windows = total_chunks // group
-
-    coords = np.zeros((total_chunks, TILE), np.int32)
-    out_vals = np.zeros((total_chunks, TILE), np.float32)
-    chunk_rp = np.zeros(total_chunks, np.int32)
-
-    if len(tiles):
-        # tile -> global chunk base: group base + exclusive cumsum within group
-        cs = np.cumsum(nchunks_tile) - nchunks_tile
-        _, gf, ginv = _uniq_sorted(gkey_tile, index=True, inverse=True)
-        within = cs - cs[gf][ginv]
-        grp_of_tile = np.searchsorted(g_uniq, gkey_tile)
-        tile_chunk_base = group_base[grp_of_tile] + within
-
-        # per-nnz chunk/slot + coords/vals fill: one native pass over the
-        # tile-sorted residual (numpy fallback inside chunk_fill)
-        slot_sp = chunk_fill(
-            t_first, counts, tile_chunk_base, s_rows, s_cols, s_vals,
-            cwidth, coords.reshape(-1), out_vals.reshape(-1),
-        )
-
-        # row panel of every (non-padding) chunk
-        tot = int(nchunks_tile.sum())
-        expand = np.arange(tot) - np.repeat(cs, nchunks_tile)
-        all_chunk_idx = np.repeat(tile_chunk_base, nchunks_tile) + expand
-        chunk_rp[all_chunk_idx] = np.repeat(tiles % stripe_tiles, nchunks_tile).astype(
-            np.int32
-        )
-
-        res_slots = slot_sp
-    else:
-        res_slots = np.zeros(0, np.int64)
-    nchunk_slots = total_chunks * TILE
-
-    # ---- dense-tile store (hybrid MXU path) ----
-    # Blocks are grouped DGROUP per grid step (same (stripe, col panel);
-    # groups zero-padded) so the per-step grid overhead amortizes like the
-    # chunk windows do.
-    d_tiles = tiles_all[tile_dense]
-    if len(d_tiles):
-        DG = DENSE_GROUP
-        gkey_d = d_tiles // stripe_tiles  # (stripe * n_colpanels + cp)
-        gd_uniq, gd_counts = _uniq_sorted(gkey_d, counts=True)
-        padded_d = -(-gd_counts // DG) * DG
-        # every stripe must be flushed once by the dense kernel too: one
-        # dummy all-zero window for stripes with no dense tile
-        miss_d = np.setdiff1d(
-            np.arange(n_stripes, dtype=np.int64), gd_uniq // n_colpanels
-        )
-        if len(miss_d):
-            gd_uniq = np.concatenate([gd_uniq, miss_d * n_colpanels])
-            padded_d = np.concatenate([padded_d, np.full(len(miss_d), DG, np.int64)])
-            od = np.argsort(gd_uniq, kind="stable")
-            gd_uniq, padded_d = gd_uniq[od], padded_d[od]
-        base_d = np.concatenate([[0], np.cumsum(padded_d)])[:-1]
-        ndblk = int(padded_d.sum())
-
-        # block position of each real dense tile: group base + rank within
-        # group (tiles are key-sorted, so rank = index - group's first index)
-        grp_of_tile_d = np.searchsorted(gd_uniq, gkey_d)
-        first_of_grp = np.searchsorted(gkey_d, gd_uniq)
-        within = np.arange(len(d_tiles)) - first_of_grp[grp_of_tile_d]
-        blk_pos = base_d[grp_of_tile_d] + within
-
-        dvals = np.zeros((ndblk, TILE, TILE), np.float32)
-        b_of_nnz = np.repeat(blk_pos, counts_all[tile_dense])
-        dlrow = (ar_p[:b_r] % TILE).astype(np.int64)
-        dlcol = (ac_p[:b_r] % TILE).astype(np.int64)
-        # (col, row) layout: the kernel computes out_panel += D_panel @ block
-        from ..io.loader import dense_scatter
-
-        dense_scatter(dvals, b_of_nnz, dlcol, dlrow, av_p[:b_r])
-
-        rp_blk = np.zeros(ndblk, np.int64)
-        rp_blk[blk_pos] = d_tiles % stripe_tiles
-        rp4d = rp_blk.reshape(-1, 4)
-        nwin_d = ndblk // DG
-        dblk_rp = (
-            (rp4d[:, 0] | (rp4d[:, 1] << 8) | (rp4d[:, 2] << 16) | (rp4d[:, 3] << 24))
-            .astype(np.int32)
-            .reshape(nwin_d, DG // 4)
-        )
-        win_per_d = (padded_d // DG).astype(np.int64)
-        dblk_stripe = np.append(
-            np.repeat((gd_uniq // n_colpanels).astype(np.int32), win_per_d), -1
-        ).astype(np.int32)
-        dblk_panel = np.append(
-            np.repeat((gd_uniq % n_colpanels).astype(np.int32), win_per_d), 0
-        ).astype(np.int32)
-        dense_local = b_of_nnz * TILE * TILE + dlcol * TILE + dlrow
-    else:
-        ndblk = 0
-        dvals = dblk_stripe = dblk_panel = dblk_rp = None
-        dense_local = None
-
-    # ---- quad-tail store (TILE//quad_seg small tiles per chunk) ----
-    q_tiles = tiles_all[tile_quad]
-    nper = TILE // quad_seg  # tiles per chunk (4 for seg 32, 8 for seg 16)
-    nwords = nper // 4  # packed rp words per chunk
-    if len(q_tiles):
-        QG = QUAD_GROUP
-        gq_key = q_tiles // stripe_tiles  # (stripe * n_colpanels + cp)
-        gq_uniq, gq_tilecounts = _uniq_sorted(gq_key, counts=True)
-        chunks_per_gq = -(-gq_tilecounts // nper)
-        padded_q = -(-chunks_per_gq // QG) * QG
-        # every stripe must be flushed by the quad kernel too
-        miss_q = np.setdiff1d(
-            np.arange(n_stripes, dtype=np.int64), gq_uniq // n_colpanels
-        )
-        if len(miss_q):
-            gq_uniq = np.concatenate([gq_uniq, miss_q * n_colpanels])
-            padded_q = np.concatenate([padded_q, np.full(len(miss_q), QG, np.int64)])
-            oq = np.argsort(gq_uniq, kind="stable")
-            gq_uniq, padded_q = gq_uniq[oq], padded_q[oq]
-        base_q = np.concatenate([[0], np.cumsum(padded_q)])[:-1]
-        nq = int(padded_q.sum())
-
-        grp_of_tile_q = np.searchsorted(gq_uniq, gq_key)
-        first_of_grp_q = np.searchsorted(gq_key, gq_uniq)
-        within_t = np.arange(len(q_tiles)) - first_of_grp_q[grp_of_tile_q]
-        chunk_of_tile = base_q[grp_of_tile_q] + within_t // nper
-        seg_of_tile = within_t % nper
-
-        qlrows = np.zeros((nq, TILE), np.int32)
-        qlcols = np.zeros((nq, TILE), np.int32)
-        qvals = np.zeros((nq, TILE), np.float32)
-        rp_seg = np.zeros((nq, nper), np.int64)
-        rp_seg[chunk_of_tile, seg_of_tile] = q_tiles % stripe_tiles
-        rp4q = rp_seg.reshape(-1, 4)
-        q_rp = (
-            rp4q[:, 0]
-            | (rp4q[:, 1] << 8)
-            | (rp4q[:, 2] << 16)
-            | (rp4q[:, 3] << 24)
-        ).astype(np.int32)  # (nq * nwords,)
-        nwin_q = nq // QG
-        q_rp = q_rp.reshape(nwin_q, QG * nwords)
-        win_per_q = (padded_q // QG).astype(np.int64)
-        qwin_stripe = np.append(
-            np.repeat((gq_uniq // n_colpanels).astype(np.int32), win_per_q), -1
-        ).astype(np.int32)
-        qwin_panel = np.append(
-            np.repeat((gq_uniq % n_colpanels).astype(np.int32), win_per_q), 0
-        ).astype(np.int32)
-
-        # per-nnz placement from the quad partition (tile-sorted, tiles
-        # contiguous: ranges come from the classification counts)
-        counts_q = counts_all[tile_quad]
-        tf_q = np.cumsum(counts_q) - counts_q
-        tile_of_nnz_q = np.repeat(np.arange(len(q_tiles)), counts_q)
-        pos_q = np.arange(nq_nnz, dtype=np.int64) - np.repeat(tf_q, counts_q)
-        qslot = (
-            chunk_of_tile[tile_of_nnz_q] * TILE
-            + seg_of_tile[tile_of_nnz_q] * quad_seg
-            + pos_q
-        )
-        qlrows.reshape(-1)[qslot] = (ar_p[b_q:b_c] % TILE).astype(np.int32)
-        qlcols.reshape(-1)[qslot] = (ac_p[b_q:b_c] % TILE).astype(np.int32)
-        qvals.reshape(-1)[qslot] = av_p[b_q:b_c]
-    else:
-        nq = 0
-        qvals = qlrows = qlcols = q_rp = qwin_panel = qwin_stripe = None
-        qslot = None
-
-    # ---- COO dust band (tiles <= coo_tail_nnz): XLA segment-sum path ----
-    n_coo = nc_nnz
-    if n_coo:
-        c_rows = ar_p[b_c:]
-        c_cols = ac_p[b_c:]
-        oc = stable_argsort(c_rows.astype(np.int64) * n + c_cols)
-        coo_rows = c_rows[oc].astype(np.int32)
-        coo_cols = c_cols[oc].astype(np.int32)
-        coo_vals = av_p[b_c:][oc].astype(np.float32)
-        pos = np.empty(n_coo, np.int64)
-        pos[oc] = np.arange(n_coo)
-    else:
-        coo_rows = coo_cols = coo_vals = None
-        pos = None
-
-    # perm + per-region refresh maps straight from the class partition:
-    # each class carries (CSR id, slot) pairs, so the maps are direct
-    # scatters with near-monotone slot targets — the CSR-domain perm
-    # gathers this replaces measured ~9 s at the config6 side.
-    nnz_total = len(akey)
-    idt = np.int32 if nnz_total < 2**31 - 1 else np.int64
-    qbase = nchunk_slots + ndblk * TILE * TILE
-    cobase = qbase + nq * TILE
-    perm = np.empty(nnz_total, np.int64)
-    inv = np.full(nchunk_slots, nnz_total, idt)
-    if nr_nnz:
-        perm[ids_res] = res_slots
-        inv[res_slots] = ids_res.astype(idt, copy=False)
-    if ndblk and nd_nnz:
-        perm[ids_p[:b_r]] = nchunk_slots + dense_local
-    if ndblk:
-        dense_nnz = ids_p[:b_r].astype(idt, copy=False)
-        sdt = np.int32 if ndblk * TILE * TILE < 2**31 - 1 else np.int64
-        dense_slot = dense_local.astype(sdt)
-    else:
-        dense_nnz = dense_slot = None
-    if nq:
-        qinv = np.full(nq * TILE, nnz_total, idt)
-        if nq_nnz:
-            perm[ids_p[b_q:b_c]] = qbase + qslot
-            qinv[qslot] = ids_p[b_q:b_c].astype(idt, copy=False)
-    else:
-        qinv = None
-    if n_coo:
-        perm[ids_p[b_c:]] = cobase + pos
-        coo_ids = ids_p[b_c:][oc].astype(idt, copy=False)
-    else:
-        coo_ids = None
-
-    win_per_group = (padded_per_group // group).astype(np.int64)
-    win_stripe = np.repeat((g_uniq // n_cpanels).astype(np.int32), win_per_group)
-    win_panel = np.repeat((g_uniq % n_cpanels).astype(np.int32), win_per_group)
-    win_stripe = np.append(win_stripe, -1).astype(np.int32)  # sentinel: final flush
-    win_panel = np.append(win_panel, 0).astype(np.int32)
-
-    # Pack 4 row panels per int32 word (rp < stripe_tiles <= 32 fits a byte):
-    # the kernel's scalar-prefetch operand must fit SMEM (1 MB) — unpacked
-    # int32 blew it at MovieLens scale (~440k chunks = 1.7 MB).
-    rp4 = chunk_rp.reshape(-1, 4)
-    rp_packed = (
-        rp4[:, 0] | (rp4[:, 1] << 8) | (rp4[:, 2] << 16) | (rp4[:, 3] << 24)
-    ).astype(np.int32)
-
-    asarray = lambda a: None if a is None else jnp.asarray(a)
-    return TiledSideC(
-        jnp.asarray(coords),
-        jnp.asarray(out_vals),
-        jnp.asarray(rp_packed.reshape(n_windows, group // 4)),
-        jnp.asarray(win_panel),
-        jnp.asarray(win_stripe),
-        jnp.asarray(perm),
-        n_stripes,
-        n_cpanels,
-        n_windows,
-        group,
-        stripe_tiles,
-        p,
-        n,
-        jnp.asarray(inv),
-        asarray(dvals),
-        asarray(dblk_panel),
-        asarray(dblk_stripe),
-        asarray(dblk_rp),
-        ndblk,
-        span,
-        qvals=asarray(qvals),
-        qlrows=asarray(qlrows),
-        qlcols=asarray(qlcols),
-        q_rp=asarray(q_rp),
-        qwin_panel=asarray(qwin_panel),
-        qwin_stripe=asarray(qwin_stripe),
-        n_qchunks=nq,
-        quad_seg=quad_seg,
-        qinv=asarray(qinv),
-        dense_nnz=asarray(dense_nnz),
-        dense_slot=asarray(dense_slot),
-        coo_rows=asarray(coo_rows),
-        coo_cols=asarray(coo_cols),
-        coo_vals=asarray(coo_vals),
-        coo_nnz=asarray(coo_ids),
-        n_coo=n_coo,
+def value_stats(vals) -> np.ndarray:
+    """(sum, sum of squares, min) of host values, accumulated in float64."""
+    v = np.asarray(vals)
+    return np.asarray(
+        [v.sum(dtype=np.float64), (v.astype(np.float64) ** 2).sum(),
+         v.min() if len(v) else 0.0],
+        np.float64,
     )
 
 
-def build_tiled(
-    rows, cols, vals, shape, *, stripe_tiles: int = 32, layout: str = "compact",
-    group: int = 16, order: str = "degree", dense_tile_nnz: int | None = None,
-    tail_span: int = 1, quad_tail_nnz: int | None = None, quad_seg: int = 32,
-    coo_tail_nnz: int | None = None,
-) -> TiledCSR:
-    """Build both tiling orientations from COO data (deduped).
+def build_tiled(rows, cols, vals, shape) -> TiledCSR:
+    """Build the store from COO data (deduplicated: duplicate coordinates
+    would be summed by the products but counted twice by the SDDMM)."""
+    from ..io.loader import gather3, stable_argsort
 
-    ``stripe_tiles`` row panels per stripe: the kernel's out scratch is
-    ``stripe_tiles * 128`` rows x k values (32 panels x k=128 x f32 = 2 MB
-    VMEM).  ``layout`` must be ``"compact"`` (nonempty tiles' chunks with
-    scalar-prefetched window maps) — the round-1 dense ``"grid"`` layout was
-    retired in round 4 after measuring 2.24x slower on-chip.  ``group`` is
-    the chunks-per-grid-step granularity of the kernel.
-
-    ``order="degree"`` renumbers rows and columns by descending degree before
-    binning, so power-law data (ratings matrices) packs its head into dense
-    tiles instead of scattering tail nonzeros one-per-128-slot-chunk; the
-    kernel wrappers gather/scatter factor rows through the stored
-    permutations (two O(len*k) gathers per product).  ``order="natural"``
-    keeps original coordinates.
-    """
     p, n = shape
     rows = np.asarray(rows, np.int32)
     cols = np.asarray(cols, np.int32)
     vals = np.asarray(vals, np.float32)
     # == lexsort((cols, rows)); the fused-key stable argsort is ~10x faster
-    from ..io.loader import gather3, stable_argsort
-
     so = stable_argsort(rows.astype(np.int64) * n + cols)
     rows, cols, vals = gather3(so, rows, cols, vals)
-
-    row_perm = row_rank = col_perm = col_rank = None
-    rows_t, cols_t = rows, cols
-    if order == "degree":
-        rdeg = np.bincount(rows, minlength=p)
-        cdeg = np.bincount(cols, minlength=n)
-        row_perm = np.argsort(-rdeg, kind="stable").astype(np.int32)
-        col_perm = np.argsort(-cdeg, kind="stable").astype(np.int32)
-        row_rank = np.empty(p, np.int32)
-        row_rank[row_perm] = np.arange(p, dtype=np.int32)
-        col_rank = np.empty(n, np.int32)
-        col_rank[col_perm] = np.arange(n, dtype=np.int32)
-        rows_t = row_rank[rows]
-        cols_t = col_rank[cols]
-
-    if layout != "compact":
-        raise ValueError(
-            f"layout={layout!r} is not supported: the dense 'grid' layout "
-            "was retired (compact measured 2.24x faster on-chip, round 3)"
-        )
-    fwd = _build_side_compact(
-        rows_t, cols_t, vals, p, n, stripe_tiles, group, dense_tile_nnz,
-        tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
-    )
-    bwd = _build_side_compact(
-        cols_t, rows_t, vals, n, p, stripe_tiles, group, dense_tile_nnz,
-        tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
-    )
-    asarray = lambda a: None if a is None else jnp.asarray(a)
-    stats = np.asarray(
-        [
-            vals.sum(dtype=np.float64),
-            (vals.astype(np.float64) ** 2).sum(),
-            vals.min() if len(vals) else 0.0,
-        ],
-        np.float32,
-    )
+    # entries are (row, col)-sorted; the stable sort by column gives the
+    # (col, row) order of the transposed products
+    col_order = stable_argsort(cols.astype(np.int64)).astype(np.int32)
     return TiledCSR(
-        fwd,
-        bwd,
         jnp.asarray(rows),
         jnp.asarray(cols),
         jnp.asarray(vals),
-        asarray(row_perm),
-        asarray(row_rank),
-        asarray(col_perm),
-        asarray(col_rank),
         (p, n),
-        (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
-         coo_tail_nnz),
-        stats=jnp.asarray(stats),
+        stats=jnp.asarray(value_stats(vals), jnp.float32),
+        col_order=jnp.asarray(col_order),
     )
 
 
-def from_bcoo(X, *, stripe_tiles: int = 32, layout: str = "compact",
-              group: int = 16, order: str = "degree",
-              dense_tile_nnz: int | None = None, tail_span: int = 1,
-              quad_tail_nnz: int | None = None,
-              quad_seg: int = 32, coo_tail_nnz: int | None = None) -> TiledCSR:
+def from_bcoo(X) -> TiledCSR:
     idx = np.asarray(X.indices)
-    return build_tiled(
-        idx[:, 0], idx[:, 1], np.asarray(X.data), X.shape,
-        stripe_tiles=stripe_tiles, layout=layout, group=group, order=order,
-        dense_tile_nnz=dense_tile_nnz, tail_span=tail_span,
-        quad_tail_nnz=quad_tail_nnz, quad_seg=quad_seg,
-        coo_tail_nnz=coo_tail_nnz,
-    )
+    return build_tiled(idx[:, 0], idx[:, 1], np.asarray(X.data), X.shape)

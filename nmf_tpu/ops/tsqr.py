@@ -39,8 +39,8 @@ __all__ = ["cholesky_qr"]
 def _one_pass(Y, relshift):
     l = Y.shape[1]
     dt = Y.dtype
-    # the Gram feeding Cholesky must be exact-f32/f64: bf16 Grams can round
-    # to indefinite (the measured projals NaN, docs/tpu_results.md)
+    # the Gram feeding Cholesky must be exact-f32/f64: reduced-precision
+    # Grams can round to indefinite (see the note in models/projals.py)
     G = jnp.matmul(Y.T, Y, precision=jax.lax.Precision.HIGHEST)
     shift = jnp.asarray(relshift, dt) * jnp.trace(G)
     G = G + shift * jnp.eye(l, dtype=dt)

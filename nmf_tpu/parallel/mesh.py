@@ -2,10 +2,10 @@
 
 The workload's two scalable dimensions are p (rows of X/W) and n (cols of
 X/H); k stays replicated (SURVEY.md §2B).  We therefore use a 2-D logical
-mesh with axes ("rows", "cols").  On a pod slice the mesh is laid out with
-``mesh_utils.create_device_mesh`` so both axes ride ICI; multi-host process
-bootstrap goes through ``jax.distributed.initialize`` (see
-``init_distributed``).
+mesh with axes ("rows", "cols").  The cards of one host reach each other
+all to all at one rate (NVLink), so the mesh is a plain reshape of the
+device list and follows the algorithm alone; multi-host process bootstrap
+goes through ``jax.distributed.initialize`` (see ``init_distributed``).
 """
 
 from __future__ import annotations
@@ -40,13 +40,7 @@ def make_mesh(shape: tuple[int, int] | None = None, devices=None) -> Mesh:
         raise ValueError(
             f"mesh shape {shape} does not cover {len(devices)} devices"
         )
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_device_mesh(shape, devices=devices)
-    except Exception:
-        arr = np.array(devices).reshape(shape)
-    return Mesh(arr, axis_names=(ROWS, COLS))
+    return Mesh(np.array(devices).reshape(shape), axis_names=(ROWS, COLS))
 
 
 def init_distributed(coordinator_address=None, num_processes=None, process_id=None):

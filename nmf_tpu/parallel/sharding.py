@@ -73,21 +73,9 @@ def shard_problem(mesh: Mesh, X, W, H):
 
         from ..ops.sparse_shard import shard_tiled
 
-        kw = {}
-        if X.build_opts is not None:
-            st, layout, group, dense, quad, *rest = X.build_opts
-            kw = dict(stripe_tiles=st, layout=layout, group=group,
-                      dense_tile_nnz=dense, quad_tail_nnz=quad,
-                      # build_opts predates the order knob: infer it from
-                      # whether the TiledCSR carries degree permutations
-                      order="degree" if X.row_perm is not None else "natural")
-            if rest:
-                kw["quad_seg"] = rest[0]
-            if len(rest) > 1 and rest[1] is not None:
-                kw["coo_tail_nnz"] = rest[1]
         X = shard_tiled(
             np.asarray(X.row_idx), np.asarray(X.col_idx), np.asarray(X.values),
-            X.shape, mesh, **kw,
+            X.shape, mesh,
         )
     elif matops.is_sparse(X):  # BCOO
         import numpy as np

@@ -4,7 +4,7 @@ The reference library is generic over the element type ``T`` and derives all of
 its tolerances from ``eps(T)`` (e.g. per-solver ``tol = cbrt(eps(T))``,
 ``nnmf`` top-level ``tol = cbrt(eps(T)/100)``; see /root/reference/src/interf.jl:8
 and /root/reference/src/multupd.jl:21).  We mirror that: every default is a
-function of the working dtype, so float32 (the TPU-native type) and float64
+function of the working dtype, so float32 (the device-native type) and float64
 (the parity-test type, with ``jax_enable_x64``) both behave like the reference
 does for the same ``T``.
 """

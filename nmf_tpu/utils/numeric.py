@@ -2,8 +2,8 @@
 
 The reference implements these as in-place scalar loops over CPU arrays
 (/root/reference/src/utils.jl:15-61).  Here every op is a pure function on
-jax arrays: under ``jit`` XLA fuses them into the surrounding matmuls, so on
-TPU they cost (close to) nothing — there is no reason for hand-written loops.
+jax arrays: under ``jit`` XLA fuses them into the surrounding matmuls, so
+they cost (close to) nothing — there is no reason for hand-written loops.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ def mtx_file(tmp_path):
 
 def test_native_library_builds():
     assert loader.native_available(), (
-        "libnmf_host.so missing - run `make -C native`"
+        "native/build/libnmf_host.so could not be built (see the warning)"
     )
 
 
@@ -82,9 +82,9 @@ def test_numpy_fallback(mtx_file, monkeypatch):
 
 
 def test_native_binner_helpers_match_numpy():
-    """The native parallel binning helpers (stable radix argsort, fused
-    3-array gather, dense-element scatter) are exact replacements for the
-    numpy statements they accelerate.  Sizes exceed the native-path
+    """The native parallel store-build helpers (stable radix argsort, fused
+    3-array gather) are exact replacements for the numpy statements they
+    accelerate.  Sizes exceed the native-path
     threshold (1 << 16) so the C++ code actually runs when built; heavy key
     ties exercise radix stability."""
     if not loader.native_available():
@@ -108,13 +108,3 @@ def test_native_binner_helpers_match_numpy():
     np.testing.assert_array_equal(ro, r[order])
     np.testing.assert_array_equal(co, c[order])
     np.testing.assert_array_equal(vo, v[order])
-    nb = 40
-    key = np.unique(rng.integers(0, nb * 128 * 128, n))
-    blk, rem = key // (128 * 128), key % (128 * 128)
-    lc, lr = rem // 128, rem % 128
-    vv = rng.random(len(key)).astype(np.float32)
-    d1 = np.zeros((nb, 128, 128), np.float32)
-    loader.dense_scatter(d1, blk, lc, lr, vv)
-    d2 = np.zeros((nb, 128, 128), np.float32)
-    d2[blk, lc, lr] = vv
-    np.testing.assert_array_equal(d1, d2)

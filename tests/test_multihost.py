@@ -1,8 +1,8 @@
 """Multi-process distributed solve: two local processes form a jax.distributed
 cluster (CPU backend, 4 virtual devices each -> 8-device global mesh) and run
 a sharded solve.  This exercises the exact multi-host code path
-(jax.distributed.initialize + GSPMD over a global mesh) that a TPU pod uses,
-minus the ICI transport."""
+(jax.distributed.initialize + GSPMD over a global mesh) that several hosts
+use, minus the interconnect."""
 
 import os
 import socket
@@ -126,7 +126,7 @@ import numpy as np
 
 sys.path.insert(0, sys.argv[4])
 import nmf_tpu
-from nmf_tpu.ops.sparse_shard import TILE, shard_tiled, sharded_mm
+from nmf_tpu.ops.sparse_shard import shard_tiled, sharded_mm
 from nmf_tpu.parallel.mesh import make_mesh
 from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -141,24 +141,24 @@ r, c = np.nonzero(Xd)
 v = Xd[r, c]
 
 # process-local slice: keep ONLY the nnz of blocks owned by this process
-local_p = -(-(-(-p // R)) // TILE) * TILE
-local_n = -(-(-(-n // C)) // TILE) * TILE
+local_p = -(-p // R)
+local_n = -(-n // C)
 dev = np.asarray(mesh.devices)
 own = np.asarray([[dev[i, j].process_index == pid for j in range(C)] for i in range(R)])
 m = own[r // local_p, c // local_n]
 nnz_local, nnz_total = int(m.sum()), len(v)
 
-X = shard_tiled(r[m], c[m], v[m], (p, n), mesh, stripe_tiles=1, local=True)
+X = shard_tiled(r[m], c[m], v[m], (p, n), mesh, local=True)
 
-# memory: this process materializes ~its share of the chunk slots
+# memory: this process materializes ~its share of the entries
 seen = set()
 loc = 0
-for s in X.fwd.vals.addressable_shards:
+for s in X.vals.addressable_shards:
     key = tuple((sl.start, sl.stop) for sl in s.index)
     if key not in seen:
         seen.add(key)
         loc += int(np.prod(s.data.shape))
-frac = loc / X.fwd.vals.size
+frac = loc / X.vals.size
 
 # sharded product matches dense on this process's output shards
 Dh = rng.random((n, 8)).astype(np.float32)
@@ -196,7 +196,7 @@ print(
 @pytest.mark.skipif(os.environ.get("NMF_TPU_SKIP_MULTIHOST") == "1", reason="disabled")
 def test_two_process_local_shard_build(tmp_path):
     """shard_tiled(local=True): each process bins only its own nnz, holds only
-    ~1/P of the chunk slots, and the sharded products + multdiv per-nnz path
+    ~1/P of the entries, and the sharded products + multdiv per-nnz path
     agree with dense / across processes."""
     worker = tmp_path / "worker.py"
     worker.write_text(_SPARSE_WORKER)
@@ -238,7 +238,7 @@ def test_two_process_local_shard_build(tmp_path):
     assert set(results) == {"0", "1"}, outs
     for pid, (ok, frac, nnz_local, nnz_total, objv, st) in results.items():
         assert ok == 1
-        assert frac <= 0.75, f"process {pid} materialized {frac:.0%} of slots"
+        assert frac <= 0.75, f"process {pid} materialized {frac:.0%} of entries"
         assert nnz_local < nnz_total
         assert np.isfinite(objv)
         # every process sees the full (replicated) per-block count table
